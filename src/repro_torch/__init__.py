@@ -1,0 +1,14 @@
+"""PyTorch/CUDA port of the quad-camera ORB visual frontend.
+
+``repro_torch`` mirrors the JAX/Pallas package ``repro`` module for
+module (``core/``, ``kernels/``, ``data/``) and runs the session's main
+path, ``VisualSystem.process_frame``, with PyTorch around three kernels
+written by hand in CUDA C++ for Hopper (``kernels/csrc/``).  It imports
+neither jax nor any module of ``repro``; the comparison tests under
+``tests/port/`` are the only code that imports both.
+
+Every kernel wrapper decides by the device of the tensor it is given:
+on a CPU tensor it runs the kernel's plain PyTorch version, on a CUDA
+tensor it launches the hand-written kernel (built at first use) or
+raises.  Entry points default to ``device="cuda"``.
+"""

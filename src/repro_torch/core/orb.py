@@ -1,0 +1,66 @@
+"""ORB feature extraction — the paper's Feature Extractor block (port
+of ``repro.core.orb.extract_features_batched``): TWO kernel launches
+per FRAME for every camera at every pyramid level.
+
+  1. DENSE stage (``ops.fast_blur_nms_pyramid``): one launch over every
+     camera x level slab -> blur + NMS'd FAST score.
+  2. per-level static top-K (``fast.select_topk``, a stable sort).
+  3. SPARSE stage (``ops.orient_describe_pyramid``): one launch over the
+     level-sorted (B, K_total) keypoints -> theta, moments, rBRIEF.
+
+Then the levels merge into one static-shape FeatureSet with level-0
+coordinates.  ``features_from_levels`` is steps 1-3 on given pyramid
+levels, so a caller (or a test) can feed its own pyramid.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import fast, pyramid
+from repro_torch.core.types import FeatureSet, ORBConfig
+from repro_torch.kernels import ops
+
+
+def _merge_levels(parts: list[FeatureSet]) -> FeatureSet:
+    return FeatureSet(*[torch.cat([getattr(p, f) for p in parts], dim=1)
+                        for f in FeatureSet._fields])
+
+
+def _level_features(lvl: int, cfg: ORBConfig, xy, vals, valid,
+                    theta, desc) -> FeatureSet:
+    b, k_l = xy.shape[0], xy.shape[1]
+    scale = cfg.scale_factor ** lvl
+    return FeatureSet(
+        xy=xy.float() * scale,
+        level=torch.full((b, k_l), lvl, dtype=torch.int32, device=xy.device),
+        score=vals.float(),
+        theta=theta,
+        desc=desc,
+        valid=valid,
+    )
+
+
+def features_from_levels(levels, cfg: ORBConfig) -> FeatureSet:
+    """Dense FE, top-K and sparse FE on given (B, h_l, w_l) pyramid
+    levels -> FeatureSet with a leading (B,) axis on every field."""
+    ks = cfg.features_per_level()
+    dense = ops.fast_blur_nms_pyramid(
+        levels, float(cfg.fast_threshold), nms=cfg.nms,
+        quantized=cfg.quantized)
+    topk = [fast.select_topk(score, k_l, cfg.border)
+            for (_smoothed, score), k_l in zip(dense, ks)]
+    sparse = ops.orient_describe_pyramid(
+        levels, [sm for sm, _ in dense], [xy for xy, _, _ in topk])
+    return _merge_levels([
+        _level_features(lvl, cfg, xy, vals, valid, theta, desc)
+        for lvl, ((xy, vals, valid), (theta, _mom, desc)) in enumerate(
+            zip(topk, sparse))])
+
+
+def extract_features_batched(images: torch.Tensor,
+                             cfg: ORBConfig) -> FeatureSet:
+    """images: (B, H, W) float in [0, 255] — B cameras — to a FeatureSet
+    of K features per camera, in exactly 2 kernel launches."""
+    return features_from_levels(
+        pyramid.build_pyramid_batched(images, cfg), cfg)

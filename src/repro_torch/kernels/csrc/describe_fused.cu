@@ -1,0 +1,120 @@
+// Sparse FE over every keypoint of every camera x level in one launch.
+//
+// Replaces the TPU kernel repro/kernels/describe_fused.py::
+// describe_fused_pyramid_pallas (pl.pallas_call at line 291): per
+// keypoint, the 31x31 circular-mask moments (m10, m01), theta =
+// atan2(m01, m10), the 30-degree steering bin, and the 256-bit rBRIEF
+// descriptor p(A) < p(B) on the smoothed patch through the bin's
+// STEER_LUT row, packed bit i into word i / 32.
+//
+// Bound on an H100 SXM at the paper's configuration (4 cameras x 1000
+// keypoints): each keypoint reads a 31x31 raw and a 31x31 smoothed
+// patch, 31 MB if no two patches overlapped; counting each covered
+// slab pixel once, about 17 MB on chip_smoke.py's 720p scene, 5 us at
+// 3.35 TB/s.  The arithmetic (about 3,100 operations a keypoint) is
+// under 0.2 us at 67 TFLOP/s, so the kernel is bound by bytes.
+//
+// Design: one warp per keypoint, four keypoints per 128-thread block.
+// The warp loads both patches into shared memory with clamped reads at
+// the keypoint clamped into its slab (clamping IS the reference's edge
+// pad).  The moments are summed per lane and reduced with shuffles to
+// lane 0, which broadcasts them, so every lane derives the same theta
+// and bin.  Each tau bit is an exact shared-memory compare: the TPU's
+// +-1 selection matmul is gone, and __ballot_sync packs 32 lanes' bits
+// into one word in the reference's bit order.
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int PATCH = 31;
+constexpr int RADIUS = 15;
+constexpr int NPIX = PATCH * PATCH;
+constexpr int WARPS = 4;
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+__global__ void __launch_bounds__(WARPS * 32)
+describe_kernel(const int* __restrict__ lut, const float* __restrict__ raw,
+                const float* __restrict__ sm,
+                const long long* __restrict__ table,
+                const int* __restrict__ xy, const int* __restrict__ col_level,
+                float* __restrict__ theta, float* __restrict__ mom,
+                int* __restrict__ desc, int B, int K, float inv_step) {
+  __shared__ float s_raw[WARPS][NPIX];
+  __shared__ float s_sm[WARPS][NPIX];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long kp = static_cast<long long>(blockIdx.x) * WARPS + warp;
+  if (kp >= static_cast<long long>(B) * K) return;   // whole warp leaves
+
+  const int b = static_cast<int>(kp / K);
+  const int j = static_cast<int>(kp % K);
+  const int s = col_level[j] * B + b;
+  const long long off = table[3 * s];
+  const int h = static_cast<int>(table[3 * s + 1]);
+  const int w = static_cast<int>(table[3 * s + 2]);
+  const int x = clampi(xy[2 * kp], 0, w - 1);
+  const int y = clampi(xy[2 * kp + 1], 0, h - 1);
+
+  float* pr = s_raw[warp];
+  float* ps = s_sm[warp];
+  for (int i = lane; i < NPIX; i += 32) {
+    const int gy = clampi(y - RADIUS + i / PATCH, 0, h - 1);
+    const int gx = clampi(x - RADIUS + i % PATCH, 0, w - 1);
+    const long long g = off + static_cast<long long>(gy) * w + gx;
+    pr[i] = raw[g];
+    ps[i] = sm[g];
+  }
+  __syncwarp();
+
+  float m10 = 0.f, m01 = 0.f;
+  for (int i = lane; i < NPIX; i += 32) {
+    const int dy = i / PATCH - RADIUS, dx = i % PATCH - RADIUS;
+    if (dx * dx + dy * dy <= RADIUS * RADIUS) {
+      m10 = __fadd_rn(m10, __fmul_rn(pr[i], static_cast<float>(dx)));
+      m01 = __fadd_rn(m01, __fmul_rn(pr[i], static_cast<float>(dy)));
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    m10 = __fadd_rn(m10, __shfl_down_sync(FULL, m10, o));
+    m01 = __fadd_rn(m01, __shfl_down_sync(FULL, m01, o));
+  }
+  m10 = __shfl_sync(FULL, m10, 0);
+  m01 = __shfl_sync(FULL, m01, 0);
+  const float th = atan2f(m01, m10);
+  int bin = static_cast<int>(rintf(__fmul_rn(th, inv_step))) % 12;
+  if (bin < 0) bin += 12;
+
+  const int* row = lut + bin * 256 * 2;
+#pragma unroll
+  for (int wd = 0; wd < 8; ++wd) {
+    const int i = wd * 32 + lane;
+    const bool tau = ps[row[2 * i]] < ps[row[2 * i + 1]];
+    const unsigned bits = __ballot_sync(FULL, tau);
+    if (lane == 0) desc[kp * 8 + wd] = static_cast<int>(bits);
+  }
+  if (lane == 0) {
+    theta[kp] = th;
+    mom[2 * kp] = m10;
+    mom[2 * kp + 1] = m01;
+  }
+}
+
+}  // namespace
+
+extern "C" int describe_fused_pyramid(const int* lut, const float* raw,
+                                      const float* sm, const long long* table,
+                                      const int* xy, const int* col_level,
+                                      float* theta, float* mom, int* desc,
+                                      int B, int K, float inv_step,
+                                      cudaStream_t stream) {
+  const long long n = static_cast<long long>(B) * K;
+  const dim3 grid(static_cast<unsigned>((n + WARPS - 1) / WARPS));
+  describe_kernel<<<grid, WARPS * 32, 0, stream>>>(
+      lut, raw, sm, table, xy, col_level, theta, mom, desc, B, K, inv_step);
+  return static_cast<int>(cudaGetLastError());
+}

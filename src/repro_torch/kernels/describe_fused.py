@@ -1,0 +1,101 @@
+"""Sparse FE over every keypoint of every camera x level in one launch
+(port of ``repro.kernels.describe_fused.describe_fused_pyramid_pallas``).
+
+Per keypoint: clamp it into its slab's true image, read the 31x31 raw
+patch and compute the circular-mask moments (m10, m01) and theta =
+atan2(m01, m10) (paper Eq. 1); quantize theta to one of 12 bins of 30
+degrees; read that bin's ``STEER_LUT`` row and form the 256 tau bits
+p(A) < p(B) on the 31x31 smoothed patch (paper Eqs. 2-3); pack bit i
+into word i // 32.
+
+Inputs use the dense stage's flat slab layout (``SlabTable``): the raw
+levels and their blur lie in two flat buffers of that layout.  The
+keypoints are (B, Ktot, 2) int32 level coordinates, level-sorted along
+Ktot; ``col_level`` (Ktot,) gives each column's level, so keypoint
+(b, j) reads slab ``col_level[j] * B + b``.  The CUDA kernel is
+``csrc/describe_fused.cu``; the plain version below is the same
+function in PyTorch, and the wrapper picks it only for a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.kernels import _build, pattern
+from repro_torch.kernels.frontend_fused import SlabTable
+from repro_torch.kernels.ref import (INV_ANGLE_STEP, PATCH, RADIUS,
+                                     clamped_index, pack_bits, patch_theta,
+                                     theta_to_bin)
+
+KERNEL = _build.CudaKernel("describe_fused", "describe_fused_pyramid",
+                           "pppppppppiif")
+
+
+@functools.lru_cache(maxsize=8)
+def steer_lut(device: str) -> torch.Tensor:
+    """The (12, 256, 2) int32 steering ROM on ``device``."""
+    return torch.from_numpy(pattern.STEER_LUT.copy()).to(device)
+
+
+def _slab_patches(flat: torch.Tensor, slab: torch.Tensor, table, xy):
+    """(B, K) slab ids + (B, K, 2) keypoints -> (B, K, 31, 31) patches
+    of ``flat``, centers clamped into the slab, reads edge-clamped."""
+    off, h, w = table[slab, 0], table[slab, 1], table[slab, 2]
+    x = torch.minimum(xy[..., 0].long().clamp(min=0), w - 1)
+    y = torch.minimum(xy[..., 1].long().clamp(min=0), h - 1)
+    rows = clamped_index(y - RADIUS, PATCH, h)            # (B, K, 31)
+    cols = clamped_index(x - RADIUS, PATCH, w)
+    idx = (off[..., None, None] + rows[..., :, None] * w[..., None, None]
+           + cols[..., None, :])
+    return flat[idx]
+
+
+def describe_fused_pyramid_plain(raw: torch.Tensor, smoothed: torch.Tensor,
+                                 slabs: SlabTable, xy: torch.Tensor,
+                                 col_level: torch.Tensor):
+    """Plain PyTorch version of the sparse FE kernel.  Returns (theta
+    (B, Ktot) f32, moments (B, Ktot, 2) f32, desc (B, Ktot, 8) int32)."""
+    b = xy.shape[0]
+    slab = (col_level.long()[None, :] * b
+            + torch.arange(b, device=xy.device)[:, None])
+    raw_p = _slab_patches(raw, slab, slabs.table, xy)
+    theta, mom = patch_theta(raw_p)
+    lut = steer_lut(str(raw.device))[theta_to_bin(theta)].long()
+    sm = _slab_patches(smoothed, slab, slabs.table, xy).flatten(-2)
+    pa = torch.gather(sm, -1, lut[..., 0])
+    pb = torch.gather(sm, -1, lut[..., 1])
+    return theta, mom, pack_bits(pa < pb)
+
+
+def describe_fused_pyramid_cuda(raw: torch.Tensor, smoothed: torch.Tensor,
+                                slabs: SlabTable, xy: torch.Tensor,
+                                col_level: torch.Tensor):
+    """Launch ``csrc/describe_fused.cu`` once over every keypoint."""
+    dev = _build.require_cuda(raw, smoothed, slabs.table, xy, col_level)
+    if (raw.dtype != torch.float32 or smoothed.dtype != torch.float32
+            or xy.dtype != torch.int32 or col_level.dtype != torch.int32):
+        raise ValueError("sparse FE takes float32 slabs and int32 "
+                         "keypoints and column levels")
+    b, k = xy.shape[0], xy.shape[1]
+    theta = torch.empty((b, k), dtype=torch.float32, device=dev)
+    mom = torch.empty((b, k, 2), dtype=torch.float32, device=dev)
+    desc = torch.empty((b, k, 8), dtype=torch.int32, device=dev)
+    if b * k:
+        KERNEL(dev, steer_lut(str(dev)).data_ptr(), raw.data_ptr(),
+               smoothed.data_ptr(), slabs.table.data_ptr(), xy.data_ptr(),
+               col_level.data_ptr(), theta.data_ptr(), mom.data_ptr(),
+               desc.data_ptr(), b, k, INV_ANGLE_STEP)
+    return theta, mom, desc
+
+
+def describe_fused_pyramid(raw: torch.Tensor, smoothed: torch.Tensor,
+                           slabs: SlabTable, xy: torch.Tensor,
+                           col_level: torch.Tensor):
+    """Orientation, moments and rBRIEF for (B, Ktot) level-sorted
+    keypoints.  A CPU tensor runs the plain version; a CUDA tensor
+    launches the kernel."""
+    fn = (describe_fused_pyramid_plain if raw.device.type == "cpu"
+          else describe_fused_pyramid_cuda)
+    return fn(raw, smoothed, slabs, xy, col_level)

@@ -1,0 +1,162 @@
+"""Dense FE over every camera x pyramid level in one launch (port of
+``repro.kernels.frontend_fused.frontend_fused_pyramid_pallas``).
+
+For every pixel of every slab it emits the two per-pixel products the
+ORB frontend needs: the 7x7 binomial blur (input to rBRIEF; quantized
+with round-half-up) and the 3x3-NMS'd FAST-9/16 corner score (input to
+top-K).  Pixels outside a slab's true (h, w) are -1 to NMS, and image
+taps past the border replicate the edge pixel.
+
+Slab layout: all slabs (level-major, then camera) lie back to back in
+one flat float32 buffer; ``SlabTable`` gives each slab's (offset, h, w).
+The CUDA kernel (``csrc/frontend_fused.cu``) indexes each slab in place
+and clamps its reads, so there is no padded common canvas.  The plain
+version below is the same function in PyTorch; the wrapper picks it
+only for a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import (ARC_LEN, CIRCLE16, GAUSS7_NORM,
+                                     GAUSS7_WEIGHTS_INT, true_div)
+
+KERNEL = _build.CudaKernel("frontend_fused", "frontend_fused_pyramid",
+                           "ppppiiifii")
+
+
+class SlabTable(NamedTuple):
+    """Where each (h, w) slab lies in a flat buffer.  ``slabs`` is the
+    host copy of ``table`` ((N, 3) int64 rows of offset, h, w on the
+    slabs' device)."""
+
+    slabs: tuple[tuple[int, int, int], ...]
+    table: torch.Tensor
+    total: int
+
+
+@functools.lru_cache(maxsize=64)
+def _slab_table(level_shapes: tuple[tuple[int, int], ...], batch: int,
+                device: str) -> SlabTable:
+    slabs, off = [], 0
+    for h, w in level_shapes:
+        for _ in range(batch):
+            slabs.append((off, h, w))
+            off += h * w
+    table = torch.tensor(slabs, dtype=torch.int64, device=device)
+    return SlabTable(tuple(slabs), table, off)
+
+
+def slab_table(level_shapes, batch: int, device) -> SlabTable:
+    """Level-major slab table for ``batch`` cameras per level."""
+    return _slab_table(tuple((int(h), int(w)) for h, w in level_shapes),
+                       int(batch), str(torch.device(device)))
+
+
+def blur_plain(x: torch.Tensor, quantized: bool) -> torch.Tensor:
+    """(B, H, W) float32 -> 7x7 binomial blur, horizontal then vertical
+    pass, each summed tap by tap in order (the JAX package's order)."""
+    _, h, w = x.shape
+    pad = F.pad(x[:, None], (3, 3, 3, 3), mode="replicate")[:, 0]
+    wts = [float(v) for v in GAUSS7_WEIGHTS_INT]
+    horiz = wts[0] * pad[:, :, 0:w]
+    for k in range(1, 7):
+        horiz = horiz + wts[k] * pad[:, :, k:k + w]
+    vert = wts[0] * horiz[:, 0:h, :]
+    for k in range(1, 7):
+        vert = vert + wts[k] * horiz[:, k:k + h, :]
+    norm2 = float(GAUSS7_NORM * GAUSS7_NORM)
+    if quantized:
+        return torch.floor(true_div(vert + norm2 / 2.0, norm2))
+    return true_div(vert, norm2)
+
+
+def fast_score_plain(x: torch.Tensor, threshold: float) -> torch.Tensor:
+    """(B, H, W) float32 -> thresholded FAST-9/16 score: max over arc
+    starts of (min over a bright arc, -max over a dark arc)."""
+    _, h, w = x.shape
+    pad = F.pad(x[:, None], (3, 3, 3, 3), mode="replicate")[:, 0]
+    taps = [pad[:, 3 + dy:3 + dy + h, 3 + dx:3 + dx + w] - x
+            for dx, dy in CIRCLE16]
+    ext = taps + taps[:ARC_LEN - 1]
+    bright = dark = None
+    for s in range(len(taps)):
+        mn = mx = ext[s]
+        for j in range(1, ARC_LEN):
+            mn = torch.minimum(mn, ext[s + j])
+            mx = torch.maximum(mx, ext[s + j])
+        bright = mn if bright is None else torch.maximum(bright, mn)
+        dark = mx if dark is None else torch.minimum(dark, mx)
+    score = torch.maximum(bright, -dark)
+    return torch.where(score > threshold, score, torch.zeros_like(score))
+
+
+def nms_plain(score: torch.Tensor) -> torch.Tensor:
+    """3x3 non-max suppression with -1 outside the image: keep a
+    positive score that is >= all 8 neighbours."""
+    spad = F.pad(score[:, None], (1, 1, 1, 1), value=-1.0)[:, 0]
+    rmax = torch.maximum(torch.maximum(spad[:, :-2], spad[:, 1:-1]),
+                         spad[:, 2:])
+    nmax = torch.maximum(torch.maximum(rmax[:, :, :-2], rmax[:, :, 1:-1]),
+                         rmax[:, :, 2:])
+    return (torch.where(score >= nmax, score, torch.zeros_like(score))
+            * (score > 0).to(score.dtype))
+
+
+def frontend_fused_pyramid_plain(flat: torch.Tensor, slabs: SlabTable, *,
+                                 threshold: float, nms: bool = True,
+                                 quantized: bool = True):
+    """Plain PyTorch version of the dense FE kernel: same inputs, same
+    outputs.  Slabs of one shape that lie back to back run as a batch."""
+    blur = torch.empty_like(flat)
+    score = torch.empty_like(flat)
+    i = 0
+    while i < len(slabs.slabs):
+        off, h, w = slabs.slabs[i]
+        j = i + 1
+        while j < len(slabs.slabs) and slabs.slabs[j][1:] == (h, w):
+            j += 1
+        n = (j - i) * h * w
+        x = flat[off:off + n].view(j - i, h, w)
+        blur[off:off + n] = blur_plain(x, quantized).reshape(-1)
+        sc = fast_score_plain(x, float(threshold))
+        sc = nms_plain(sc) if nms else sc
+        score[off:off + n] = sc.reshape(-1)
+        i = j
+    return blur, score
+
+
+def frontend_fused_pyramid_cuda(flat: torch.Tensor, slabs: SlabTable, *,
+                                threshold: float, nms: bool = True,
+                                quantized: bool = True):
+    """Launch ``csrc/frontend_fused.cu`` once over every slab."""
+    dev = _build.require_cuda(flat, slabs.table)
+    if flat.dtype != torch.float32 or flat.numel() != slabs.total:
+        raise ValueError("dense FE takes the flat float32 slab buffer "
+                         "its SlabTable describes")
+    blur = torch.empty_like(flat)
+    score = torch.empty_like(flat)
+    max_h = max(h for _, h, _ in slabs.slabs)
+    max_w = max(w for _, _, w in slabs.slabs)
+    KERNEL(dev, flat.data_ptr(), blur.data_ptr(), score.data_ptr(),
+           slabs.table.data_ptr(), len(slabs.slabs), max_h, max_w,
+           float(threshold), int(bool(nms)), int(bool(quantized)))
+    return blur, score
+
+
+def frontend_fused_pyramid(flat: torch.Tensor, slabs: SlabTable, *,
+                           threshold: float, nms: bool = True,
+                           quantized: bool = True):
+    """flat: every slab's pixels, float32, laid out as ``slabs`` says.
+    Returns (blur, score) in the same layout.  A CPU tensor runs the
+    plain version; a CUDA tensor launches the kernel."""
+    fn = (frontend_fused_pyramid_plain if flat.device.type == "cpu"
+          else frontend_fused_pyramid_cuda)
+    return fn(flat, slabs, threshold=threshold, nms=nms,
+              quantized=quantized)

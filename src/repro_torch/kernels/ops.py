@@ -1,0 +1,117 @@
+"""Dispatch around the port's kernels (port of the main-path part of
+``repro.kernels.ops``).
+
+The three functions below keep the JAX package's signatures (lists of
+per-level (B, h, w) batches in, per-level results out) and own the
+layout the kernels take: the flat slab buffer and its ``SlabTable``,
+the level-sorted keypoint block and its column-level vector.  Which
+implementation runs follows the tensors' device (see each kernel
+module): there is no impl switch.
+
+``launch_audit()`` yields a counter of every kernel launch made inside
+its scope — the port's form of the JAX package's trace-time audit;
+each kernel's own ``KERNEL.launches`` integer counts its launches
+process-wide.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.kernels import describe_fused as _describe
+from repro_torch.kernels import frontend_fused as _frontend
+from repro_torch.kernels import matcher_fused as _matcher
+from repro_torch.kernels._build import launch_audit  # noqa: F401
+
+#: Every hand-written kernel of the main path, by name.
+KERNELS = {
+    "frontend_fused_pyramid": _frontend.KERNEL,
+    "describe_fused_pyramid": _describe.KERNEL,
+    "match_rectify_fused": _matcher.KERNEL,
+}
+
+
+def flat_levels(levels) -> torch.Tensor:
+    """The flat slab buffer of a list of (B, h_l, w_l) level batches:
+    a view when the levels already lie back to back in one contiguous
+    buffer (``pyramid.build_pyramid_batched`` allocates them so), else
+    a concatenated copy."""
+    first = levels[0]
+    base = first.untyped_storage().data_ptr()
+    off = first.storage_offset()
+    for lv in levels:
+        if (not lv.is_contiguous() or lv.dtype != torch.float32
+                or lv.untyped_storage().data_ptr() != base
+                or lv.storage_offset() != off):
+            return torch.cat([l.reshape(-1) for l in levels]).float()
+        off += lv.numel()
+    return first.as_strided((off - first.storage_offset(),), (1,))
+
+
+def _split(flat: torch.Tensor, levels):
+    outs, off = [], 0
+    for lv in levels:
+        n = lv.numel()
+        outs.append(flat[off:off + n].view(lv.shape))
+        off += n
+    return outs
+
+
+def _slabs_of(levels) -> _frontend.SlabTable:
+    return _frontend.slab_table([tuple(lv.shape[1:]) for lv in levels],
+                                levels[0].shape[0], levels[0].device)
+
+
+def fast_blur_nms_pyramid(levels, threshold: float, *, nms: bool = True,
+                          quantized: bool = True):
+    """Whole-pyramid dense stage: L ragged (B, h_l, w_l) float32 level
+    batches -> [(blur_l, score_l)] per level, ALL cameras x ALL levels
+    in ONE kernel launch."""
+    flat = flat_levels(levels)
+    blur, score = _frontend.frontend_fused_pyramid(
+        flat, _slabs_of(levels), threshold=float(threshold), nms=bool(nms),
+        quantized=bool(quantized))
+    return list(zip(_split(blur, levels), _split(score, levels)))
+
+
+@functools.lru_cache(maxsize=32)
+def _col_levels(ks: tuple[int, ...], device: str) -> torch.Tensor:
+    lv = [l for l, k in enumerate(ks) for _ in range(k)]
+    return torch.tensor(lv, dtype=torch.int32, device=device)
+
+
+def orient_describe_pyramid(raws, smootheds, xys):
+    """Whole-frame sparse stage: per-level raw/smoothed (B, h_l, w_l)
+    slab pairs plus per-level (B, K_l, 2) keypoint blocks -> per-level
+    (theta, moments, desc) tuples, ALL cameras x ALL levels in ONE
+    kernel launch."""
+    ks = tuple(int(xy.shape[1]) for xy in xys)
+    xy = torch.cat([x.to(torch.int32) for x in xys], dim=1).contiguous()
+    theta, mom, desc = _describe.describe_fused_pyramid(
+        flat_levels(raws), flat_levels(smootheds), _slabs_of(raws), xy,
+        _col_levels(ks, str(xy.device)))
+    outs, off = [], 0
+    for k in ks:
+        outs.append((theta[:, off:off + k], mom[:, off:off + k],
+                     desc[:, off:off + k]))
+        off += k
+    return outs
+
+
+def match_rectify_fused(desc_l, meta_l, desc_r, meta_r, img_l, img_r, *,
+                        row_band: float, max_disparity: float,
+                        max_hamming: int = 0, sad_window: int = 11,
+                        sad_range: int = 5):
+    """The ENTIRE FM stage of a frame in ONE kernel launch, batched over
+    stereo pairs.  desc_*: (P, K, 8)/(P, M, 8) int32 bit-views; meta_*:
+    (P, K, 4)/(P, M, 4) float32 rows of (x, y, level, valid); img_*:
+    (P, H, W) level-0 images.  Returns (dist, idx, rxy, sad) as
+    ``matcher_fused.match_rectify_fused``."""
+    return _matcher.match_rectify_fused(
+        desc_l.contiguous(), meta_l.contiguous(), desc_r.contiguous(),
+        meta_r.contiguous(), img_l.float().contiguous(),
+        img_r.float().contiguous(), row_band=float(row_band),
+        max_disparity=float(max_disparity), max_hamming=int(max_hamming),
+        sad_window=int(sad_window), sad_range=int(sad_range))

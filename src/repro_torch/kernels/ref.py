@@ -1,0 +1,140 @@
+"""Plain PyTorch oracles and constants shared by the port's kernels
+(port of the parts of ``repro.kernels.ref`` that the main path needs).
+
+Every helper here runs on any device and is the arithmetic the CUDA
+kernels are held against.  Two rules keep them bit-equal to the JAX
+package's jnp oracles:
+
+  * a division by a constant is written tensor / tensor
+    (``true_div``): torch turns ``tensor / python_scalar`` into a
+    multiply by the reciprocal on CUDA and ``scalar / tensor`` into
+    ``reciprocal(tensor) * scalar`` everywhere, and both round
+    differently from IEEE division;
+  * descriptors are int32 bit-views of uint32 words (torch on the CPU
+    has no uint32 shifts); bit ``i`` of a descriptor is bit ``i % 32``
+    of word ``i // 32``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import pattern
+
+# Bresenham circle of radius 3 — the 16 FAST taps, in order around the
+# circle, as (dx, dy) with y down.  (paper Sec. II-B1)
+CIRCLE16: tuple[tuple[int, int], ...] = (
+    (0, -3), (1, -3), (2, -2), (3, -1), (3, 0), (3, 1), (2, 2), (1, 3),
+    (0, 3), (-1, 3), (-2, 2), (-3, 1), (-3, 0), (-3, -1), (-2, -2), (-1, -3),
+)
+ARC_LEN = 9  # FAST-9/16: a corner needs >= 9 contiguous bright/dark taps
+
+# 7x7 Gaussian (sigma=2) with integer weights — the word-length-optimized
+# filter of paper Sec. III-C.
+GAUSS7_WEIGHTS_INT = np.array([1, 4, 8, 10, 8, 4, 1], dtype=np.int32)
+GAUSS7_NORM = int(GAUSS7_WEIGHTS_INT.sum())  # 36
+
+PATCH = 2 * pattern.PATCH_RADIUS + 1      # 31
+RADIUS = pattern.PATCH_RADIUS             # 15
+
+# theta -> steering bin: nearest bin center, bins at b * ANGLE_BIN_STEP.
+INV_ANGLE_STEP = float(np.float32(pattern.N_ANGLE_BINS / (2.0 * np.pi)))
+
+
+def int_threshold(threshold: float) -> int:
+    """FAST threshold for an integer datapath: for integer scores
+    ``score > threshold`` == ``score > floor(threshold)``."""
+    return int(np.floor(threshold))
+
+
+def true_div(x: torch.Tensor, value: float) -> torch.Tensor:
+    """IEEE float32 ``x / value`` on every device (see module note)."""
+    return x / torch.tensor(value, dtype=x.dtype, device=x.device)
+
+
+def clamped_index(start: torch.Tensor, size: int, limit) -> torch.Tensor:
+    """(..., ) int starts -> (..., size) indices ``clamp(start + i, 0,
+    limit - 1)``: edge replication of a window read is per-axis
+    clamping.  ``limit`` may be an int or a tensor broadcastable to
+    ``start``."""
+    idx = start[..., None] + torch.arange(size, device=start.device)
+    if isinstance(limit, torch.Tensor):
+        return torch.minimum(idx.clamp(min=0), limit[..., None] - 1)
+    return idx.clamp(0, limit - 1)
+
+
+def moment_grids(device=None):
+    """The circular-mask moment grids (X_GRID, Y_GRID), float32."""
+    r = torch.arange(PATCH, dtype=torch.float32, device=device) - RADIUS
+    yy, xx = r[:, None].expand(PATCH, PATCH), r[None, :].expand(PATCH, PATCH)
+    mask = (xx * xx + yy * yy <= float(RADIUS * RADIUS)).float()
+    return xx * mask, yy * mask
+
+
+def patch_theta(patches: torch.Tensor):
+    """(..., 31, 31) raw patches -> (theta (...,), moments (..., 2)):
+    intensity-centroid moments over the circular patch (paper Eq. 1),
+    theta = atan2(m01, m10)."""
+    xg, yg = moment_grids(patches.device)
+    m10 = (patches * xg).sum(dim=(-2, -1))
+    m01 = (patches * yg).sum(dim=(-2, -1))
+    return torch.atan2(m01, m10), torch.stack([m10, m01], dim=-1)
+
+
+def theta_to_bin(theta: torch.Tensor) -> torch.Tensor:
+    """(...,) float32 theta -> (...,) int64 steering bin in [0, 12):
+    round half to even, then a Python-style (non-negative) mod."""
+    return torch.remainder(torch.round(theta * INV_ANGLE_STEP).long(),
+                           pattern.N_ANGLE_BINS)
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(..., 256) bool -> (..., 8) int32 bit-views, bit i of word i // 32."""
+    w = bits.reshape(*bits.shape[:-1], 8, 32).long()
+    shifts = torch.arange(32, device=bits.device)
+    words = (w << shifts).sum(dim=-1)                     # < 2**32, exact
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def extract_patches(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """(H, W) image + (K, 2) int centers -> (K, 31, 31) patches.
+
+    Centers are clamped into the image and the window replicates the
+    edge, exactly ``repro.kernels.ref.extract_patches``."""
+    h, w = img.shape
+    x = xy[:, 0].long().clamp(0, w - 1)
+    y = xy[:, 1].long().clamp(0, h - 1)
+    rows = clamped_index(y - RADIUS, PATCH, h)
+    cols = clamped_index(x - RADIUS, PATCH, w)
+    return img[rows[:, :, None], cols[:, None, :]]
+
+
+def round_center(coord: torch.Tensor, limit: int) -> torch.Tensor:
+    """Float center -> int64 pixel: round half to even, then clamp."""
+    return torch.round(coord).long().clamp(0, limit - 1)
+
+
+def gather_patches(img: torch.Tensor, xy: torch.Tensor, ph: int, pw: int):
+    """(ph, pw) windows centered at the rounded, clamped float centers
+    ``xy`` (K, 2) of one (H, W) image, edge-replicated — the FM stage's
+    patch-read semantics (``repro.kernels.ref.gather_patches``)."""
+    h, w = img.shape
+    xs = round_center(xy[:, 0], w)
+    ys = round_center(xy[:, 1], h)
+    rows = clamped_index(ys - ph // 2, ph, h)
+    cols = clamped_index(xs - pw // 2, pw, w)
+    return img[rows[:, :, None], cols[:, None, :]]
+
+
+def sad_search(left_patches: torch.Tensor,
+               right_strips: torch.Tensor) -> torch.Tensor:
+    """(K, P, P) x (K, P, P + 2R) -> (K, 2R + 1) int32 SAD table; pixels
+    are truncated to int32 first, as the JAX oracle's ``astype``."""
+    p = left_patches.shape[1]
+    sweep = right_strips.shape[-1] - p + 1
+    lp = left_patches.to(torch.int32)
+    rs = right_strips.to(torch.int32)
+    return torch.stack([(lp - rs[:, :, s:s + p]).abs().sum(dim=(1, 2),
+                                                          dtype=torch.int32)
+                        for s in range(sweep)], dim=1)

@@ -1,0 +1,280 @@
+"""Helpers shared by the port's parity tests (``tests/port``): inputs
+made with numpy from a seed, conversions at the numpy boundary, and the
+tolerance rules the tests state.
+
+Tolerances, and why:
+
+* integer and bool outputs, blur and score: bit-equal — the same
+  arithmetic in the same order (or exact integer arithmetic).
+* theta: within 1 ulp on integer-valued frames.  The moments are then
+  integers below 2**24, exact in any summation order, and only atan2
+  differs (XLA's against torch's).
+* moments on float frames: within 2 * gamma_961 * sum|x * p| — the
+  worst-case float32 error of two 961-term sums taken in different
+  orders (gamma_n = n u / (1 - n u), u = 2**-24).
+* steering bins and descriptors: a bin may differ only where theta lies
+  within the theta difference of a bin edge (4 ulp on integer frames,
+  the moment bound carried through atan2 on float frames); descriptors
+  are equal wherever the bins agree.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+U = 2.0 ** -24
+GAMMA_961 = 961 * U / (1 - 961 * U)
+INV_ANGLE_STEP = float(np.float32(12 / (2 * np.pi)))
+
+
+def np_of(x) -> np.ndarray:
+    """torch/jax array -> numpy; int32 descriptor bit-views stay int32."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def desc_u32(x) -> np.ndarray:
+    a = np_of(x)
+    return a.view(np.uint32) if a.dtype == np.int32 else a.astype(np.uint32)
+
+
+def ulp_diff(a, b) -> np.ndarray:
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    return np.abs(a.view(np.int32).astype(np.int64)
+                  - b.view(np.int32).astype(np.int64))
+
+
+def near_bin_edge(theta, tol) -> np.ndarray:
+    """theta within ``tol`` radians of a steering-bin edge."""
+    t = np.asarray(theta, np.float64) * INV_ANGLE_STEP
+    dist = np.abs(t - (np.floor(t) + 0.5)) / INV_ANGLE_STEP
+    return dist <= np.asarray(tol, np.float64)
+
+
+def bins(theta) -> np.ndarray:
+    t = torch.from_numpy(np.asarray(theta, np.float32).copy())
+    return np.remainder(torch.round(t * INV_ANGLE_STEP).long().numpy(), 12)
+
+
+@functools.lru_cache(maxsize=8)
+def scene_frames(h: int = 96, w: int = 128, n_points: int = 300,
+                 baseline: float = 0.3):
+    """(4, h, w) float32 frames of the quad scene (the port's renderer,
+    pinned equal to the JAX package's) and the scene intrinsics."""
+    from repro_torch.data import scenes
+    frame, intr = scenes.render_frame(scenes.SceneConfig(
+        height=h, width=w, n_points=n_points, baseline=baseline))
+    frame.setflags(write=False)
+    return frame, intr
+
+
+def textured_levels(seed: int, shapes, b: int = 4, integer: bool = False):
+    """Random level batches with corner-rich texture: bright and dark
+    squares on a noisy gradient, float or rounded."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for h, w in shapes:
+        yy, xx = np.mgrid[0:h, 0:w]
+        img = (60.0 + 40.0 * xx / w + 20.0 * yy / h)[None].repeat(b, 0)
+        img = img + rng.normal(0.0, 2.0, (b, h, w))
+        for cam in range(b):
+            for _ in range(h * w // 150):
+                y, x = rng.randint(2, h - 6), rng.randint(2, w - 6)
+                img[cam, y:y + 4, x:x + 4] = rng.uniform(0.0, 255.0)
+        img = np.clip(img, 0.0, 255.0).astype(np.float32)
+        out.append(np.round(img) if integer else img)
+    return out
+
+
+def assert_sparse_parity(theta_a, mom_a, desc_a, theta_b, mom_b, desc_b,
+                         patches_abs_sum, integer: bool) -> int:
+    """The sparse-FE tolerance rule of the module note, ``a`` the
+    reference.  Returns the count of keypoints near a bin edge."""
+    theta_a, theta_b = np_of(theta_a), np_of(theta_b)
+    mom_a, mom_b = np_of(mom_a), np_of(mom_b)
+    dmom = np.abs(mom_a.astype(np.float64) - mom_b)
+    spacing = np.spacing(np.abs(theta_a))
+    if integer:
+        np.testing.assert_array_equal(mom_a, mom_b)
+        assert ulp_diff(theta_a, theta_b).max(initial=0) <= 1
+        tol = 4.0 * spacing
+    else:
+        assert np.all(dmom <= 2 * GAMMA_961 * np_of(patches_abs_sum))
+        hyp = np.maximum(np.hypot(mom_a[..., 0], mom_a[..., 1]), 1e-30)
+        tol = dmom.sum(-1) / hyp * 1.01 + 4.0 * spacing
+        assert np.all(np.abs(theta_a.astype(np.float64) - theta_b) <= tol)
+    edge = near_bin_edge(theta_a, tol)
+    bins_differ = bins(theta_a) != bins(theta_b)
+    assert not np.any(bins_differ & ~edge)
+    same_bin = ~bins_differ
+    np.testing.assert_array_equal(desc_u32(desc_a)[same_bin],
+                                  desc_u32(desc_b)[same_bin])
+    return int(edge.sum())
+
+
+def _level_keys(xy, valid):
+    """{(x, y) of a valid row (level-0 float coords): row index}."""
+    return {tuple(map(float, xy[i])): i for i in np.flatnonzero(valid)}
+
+
+def _near(key, diff_yx, scale, radius=20.0) -> bool:
+    """Is a level-0 keypoint within ``radius`` level px (Chebyshev) of
+    a differing level pixel?"""
+    if len(diff_yx) == 0:
+        return False
+    x, y = key[0] / scale, key[1] / scale
+    return bool(np.any(np.maximum(np.abs(diff_yx[:, 0] - y),
+                                  np.abs(diff_yx[:, 1] - x)) <= radius))
+
+
+def assert_stereo_parity(jo, to, k0: int, scale: float, left_cams,
+                         right_cams, lvl1_diff, integer: bool, abs_sums,
+                         moments):
+    """Whole-slice rule for a ``StereoOutput`` (``jo`` the JAX one).
+
+    Level-0 rows (the first ``k0`` of each pair): every field bit-equal,
+    theta and descriptors under the sparse-FE rule, and match/depth
+    rows exempt only where a descriptor involved lies at a bin edge.
+    Level-1 rows: the same where the two level-1 pyramids agree on the
+    pair's cameras; otherwise compared as keypoint sets, and every
+    difference must lie within 20 px of a differing level-1 pixel (or
+    at the top-K cut).  ``lvl1_diff[c]`` is the (n, 2) (y, x) list of
+    camera ``c``'s differing level-1 pixels; ``abs_sums``/``moments``
+    the per-side (P, K, 2) moment abs-sums and moments of the port's
+    patches (for the float-frame theta tolerance).  Returns the number
+    of descriptors at a bin edge."""
+    n_pairs = np.asarray(jo.matches.valid).shape[0]
+    flagged = {}
+    n_edge = 0
+    for side, cams in (("features_l", left_cams), ("features_r", right_cams)):
+        jf, tf = getattr(jo, side), getattr(to, side)
+        jth, tth = np.asarray(jf.theta), np_of(tf.theta)
+        if integer:
+            tol = 4.0 * np.spacing(np.abs(jth))
+        else:
+            dth = np.abs(jth.astype(np.float64) - tth)
+            mom = moments[side]
+            hyp = np.maximum(np.hypot(mom[..., 0], mom[..., 1]), 1e-30)
+            tol = (2 * GAMMA_961 * abs_sums[side].sum(-1) / hyp * 1.01
+                   + 4.0 * np.spacing(np.abs(jth)))
+        edge = near_bin_edge(jth, tol)
+        bdiff = bins(jth) != bins(tth)
+        ddiff = (desc_u32(jf.desc) != desc_u32(tf.desc)).any(-1)
+        flagged[side] = edge
+        for p in range(n_pairs):
+            rows = np.arange(jth.shape[1])
+            strict = rows < k0
+            if len(lvl1_diff[cams[p]]) == 0:
+                strict = np.ones_like(strict)
+            sl = strict
+            for name in ("xy", "level", "score", "valid"):
+                np.testing.assert_array_equal(
+                    np_of(getattr(tf, name))[p][sl],
+                    np.asarray(getattr(jf, name))[p][sl], err_msg=name)
+            if integer:
+                assert ulp_diff(jth[p][sl], tth[p][sl]).max(initial=0) <= 1
+            else:
+                assert np.all(dth[p][sl] <= tol[p][sl])
+            assert not np.any((bdiff[p] | ddiff[p]) & sl & ~edge[p])
+            n_edge += int((edge[p] & sl).sum())
+            if strict.all():
+                continue
+            # level-1 rows of a camera whose level-1 pixels differ
+            jk = _level_keys(np.asarray(jf.xy)[p][k0:],
+                             np.asarray(jf.valid)[p][k0:])
+            tk = _level_keys(np_of(tf.xy)[p][k0:], np_of(tf.valid)[p][k0:])
+            js, ts = np.asarray(jf.score)[p][k0:], np_of(tf.score)[p][k0:]
+            cut_j = js[list(jk.values())].min(initial=np.inf)
+            cut_t = ts[list(tk.values())].min(initial=np.inf)
+            for key in set(jk) ^ set(tk):
+                score = js[jk[key]] if key in jk else ts[tk[key]]
+                cut = cut_t if key in jk else cut_j
+                assert (_near(key, lvl1_diff[cams[p]], scale)
+                        or score <= cut), key
+            for key in set(jk) & set(tk):
+                i, j = k0 + jk[key], k0 + tk[key]
+                same = (js[jk[key]] == ts[tk[key]]
+                        and (desc_u32(jf.desc)[p, i]
+                             == desc_u32(tf.desc)[p, j]).all())
+                assert same or _near(key, lvl1_diff[cams[p]], scale) \
+                    or edge[p, i], key
+    _assert_match_rows(jo, to, k0, scale, left_cams, right_cams, lvl1_diff,
+                       flagged)
+    return n_edge
+
+
+def _assert_match_rows(jo, to, k0, scale, left_cams, right_cams, lvl1_diff,
+                       flagged):
+    n_pairs, k = np.asarray(jo.matches.valid).shape
+    jm, tm, jd, td = jo.matches, to.matches, jo.depth, to.depth
+    fields = ("disparity", "depth", "xy_right", "valid")
+    for p in range(n_pairs):
+        jxr, txr = np.asarray(jo.features_r.xy)[p], np_of(to.features_r.xy)[p]
+        jxl, txl = np.asarray(jo.features_l.xy)[p], np_of(to.features_l.xy)[p]
+        jri = np.asarray(jm.right_index)[p]
+        tri = np_of(tm.right_index)[p]
+        strict_pair = (len(lvl1_diff[left_cams[p]]) == 0
+                       and len(lvl1_diff[right_cams[p]]) == 0)
+        t_rows = {tuple(map(float, txl[i])): i for i in range(k0, k)}
+        for i in range(k):
+            if i >= k0 and not strict_pair:
+                j = t_rows.get(tuple(map(float, jxl[i])))
+                if j is None or not np.asarray(jo.features_l.valid)[p, i]:
+                    continue
+            else:
+                j = i
+            exempt = (flagged["features_l"][p, i]
+                      or flagged["features_r"][p, jri[i]]
+                      or flagged["features_r"][p, tri[j]])
+            if i >= k0 and not strict_pair:
+                exempt = exempt or any(
+                    _near(tuple(map(float, xy)), lvl1_diff[c], scale)
+                    for xy, c in ((jxl[i], left_cams[p]),
+                                  (jxr[jri[i]], right_cams[p]),
+                                  (txr[tri[j]], right_cams[p])))
+            if exempt:
+                continue
+            assert tuple(jxr[jri[i]]) == tuple(txr[tri[j]]), (p, i)
+            assert np.asarray(jm.valid)[p, i] == np_of(tm.valid)[p, j]
+            assert np.asarray(jm.distance)[p, i] == np_of(tm.distance)[p, j]
+            if i < k0 or strict_pair:
+                assert jri[i] == tri[j], (p, i)
+            for name in fields:
+                np.testing.assert_array_equal(
+                    np_of(getattr(td, name))[p, j],
+                    np.asarray(getattr(jd, name))[p, i], err_msg=name)
+
+
+def matcher_case(seed, k=40, m=48, p=2, ties=False, half_centers=False,
+                 h=48, w=72):
+    """Fused-matcher inputs: right descriptors at random, left ones
+    noisy copies of them (so real matches exist), meta rows near their
+    sources, float images; ``ties`` duplicates right features,
+    ``half_centers`` puts centers on .5 (round half to even)."""
+    rng = np.random.RandomState(seed)
+    dr = rng.randint(0, 2**32, (p, m, 8), dtype=np.uint64).astype(np.uint32)
+    # left descriptors are noisy copies of right ones -> real matches
+    src = rng.randint(0, m, (p, k))
+    dl = dr[np.arange(p)[:, None], src].copy()
+    flips = rng.randint(0, 32, (p, k, 8))
+    dl ^= (rng.rand(p, k, 8) < 0.3) * (np.uint32(1) << flips.astype(np.uint32))
+    if ties:
+        dr[:, m // 2:] = dr[:, :m - m // 2]       # duplicated right features
+    mr = np.stack([rng.uniform(-3, w + 3, (p, m)), rng.uniform(0, h, (p, m)),
+                   rng.randint(0, 2, (p, m)), rng.rand(p, m) < 0.9], -1)
+    ml = np.stack([mr[np.arange(p)[:, None], src, 0] + rng.uniform(0, 20, (p, k)),
+                   mr[np.arange(p)[:, None], src, 1] + rng.uniform(-2, 2, (p, k)),
+                   mr[np.arange(p)[:, None], src, 2], rng.rand(p, k) < 0.9], -1)
+    if ties:
+        mr[:, m // 2:] = mr[:, :m - m // 2]
+    if half_centers:
+        ml[..., :2] = np.round(ml[..., :2] * 2) / 2
+        mr[..., :2] = np.round(mr[..., :2] * 2) / 2
+    il = rng.uniform(0, 255, (p, h, w)).astype(np.float32)
+    ir = rng.uniform(0, 255, (p, h, w)).astype(np.float32)
+    return (dl, ml.astype(np.float32), dr, mr.astype(np.float32), il, ir)

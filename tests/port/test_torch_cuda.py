@@ -1,0 +1,101 @@
+"""The hand-written CUDA kernels against their plain versions, on the
+card.  Marked ``gpu``: on a host without a card they skip (a CUDA kernel
+has no interpret mode).  Run them on a card with
+
+    PYTHONPATH=src python -m pytest tests/port/test_torch_cuda.py -q
+
+(the other files of ``tests/port`` import jax, which a card host may
+not have)
+
+Tolerances as in ``parity.py``: dense FE and the matcher bit-equal; the
+sparse FE under the sparse-FE rule (integer-valued inputs here, so
+moments equal and theta within 1 ulp)."""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import (ORBConfig, PipelineConfig, RigConfig,
+                              VisualSystem, fast)
+from repro_torch.kernels import (describe_fused, frontend_fused,
+                                 matcher_fused, ops)
+
+from parity import (assert_sparse_parity, matcher_case, scene_frames,
+                    textured_levels)
+
+pytestmark = pytest.mark.gpu
+SHAPES = [(96, 128), (80, 107)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("integer", [False, True])
+def test_dense_kernel_equals_plain(cuda, integer):
+    levels = [torch.from_numpy(l).to(cuda)
+              for l in textured_levels(1, SHAPES, integer=integer)]
+    flat, slabs = ops.flat_levels(levels), ops._slabs_of(levels)
+    for nms, quantized in ((True, True), (False, True), (True, False)):
+        kw = dict(threshold=20.0, nms=nms, quantized=quantized)
+        got = frontend_fused.frontend_fused_pyramid_cuda(flat, slabs, **kw)
+        want = frontend_fused.frontend_fused_pyramid_plain(flat, slabs, **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def test_sparse_kernel_equals_plain(cuda):
+    levels = [torch.from_numpy(l).to(cuda)
+              for l in textured_levels(2, SHAPES, integer=True)]
+    dense = ops.fast_blur_nms_pyramid(levels, 20.0)
+    rng = np.random.RandomState(0)
+    xys = [torch.from_numpy(np.stack(
+        [rng.randint(-8, w + 8, (4, 40)), rng.randint(-8, h + 8, (4, 40))],
+        -1).astype(np.int32)).to(cuda) for h, w in SHAPES]
+    xy = torch.cat(xys, 1).contiguous()
+    col = ops._col_levels((40, 40), str(xy.device))
+    args = (ops.flat_levels(levels), ops.flat_levels([b for b, _ in dense]),
+            ops._slabs_of(levels), xy, col)
+    got = describe_fused.describe_fused_pyramid_cuda(*args)
+    want = describe_fused.describe_fused_pyramid_plain(*args)
+    assert_sparse_parity(*[t.cpu() for t in want], *[t.cpu() for t in got],
+                         None, integer=True)
+
+
+def test_matcher_kernel_equals_plain(cuda):
+    for case in (dict(seed=0), dict(seed=1, ties=True),
+                 dict(seed=2, half_centers=True), dict(seed=3, k=5, m=130)):
+        dl, ml, dr, mr, il, ir = matcher_case(**case)
+        args = [torch.from_numpy(a).to(cuda) for a in
+                (dl.view(np.int32), ml, dr.view(np.int32), mr, il, ir)]
+        kw = dict(row_band=2.0, max_disparity=24.0, max_hamming=64)
+        got = matcher_fused.match_rectify_fused_cuda(*args, **kw)
+        want = matcher_fused.match_rectify_fused_plain(*args, **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def test_process_frame_is_three_launches_and_matches_cpu(cuda):
+    frame, intr = scene_frames()
+    frame = np.round(frame)
+    cfg = ORBConfig(height=96, width=128, max_features=64, max_disparity=64)
+    pipe = PipelineConfig(orb=cfg)
+    vs = VisualSystem(RigConfig.quad(intr), pipe)
+    assert vs.device.type == "cuda"
+    before = {n: k.launches for n, k in ops.KERNELS.items()}
+    with ops.launch_audit() as audit:
+        out = vs.process_frame(frame)
+        torch.cuda.synchronize()
+    assert audit.count == 3
+    assert all(k.launches == before[n] + 1 for n, k in ops.KERNELS.items())
+    top = fast.select_topk(torch.zeros(1, 8, 8, device=cuda), 4, 1)
+    assert top[0].device.type == "cuda"
+    ref = VisualSystem(RigConfig.quad(intr), pipe, device="cpu")
+    feats_cpu = ref.extract(frame)
+    assert min(out.depth.valid.sum(-1).tolist()) > 0
+    assert torch.equal(out.features_l.xy.cpu()[:, :cfg.features_per_level()[0]],
+                       feats_cpu.xy[[0, 2]][:, :cfg.features_per_level()[0]])
