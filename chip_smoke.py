@@ -9,21 +9,53 @@ failure (the script then exits non-zero and prints no result):
   1. the card's name and power limit (``nvidia-smi``);
   2. build every hand-written kernel from ``src/repro_torch/kernels/csrc``
      (one ``nvcc`` per source, in parallel) and print the seconds taken;
-  3. hold each kernel (dense FE, sparse FE, fused matcher) against its
-     plain PyTorch version on the card, at the main path's shapes, on a
-     720p quad scene — once with integer-valued frames (as a uint8
-     camera delivers them) and once with the float frames as rendered —
-     and time both with CUDA events (median of 20 runs after warm-up);
+  3. hold each frame kernel against its plain PyTorch version on the
+     card, at the main path's shapes, on a 720p quad scene — once with
+     integer-valued frames (as a uint8 camera delivers them) and once
+     with the float frames as rendered — and time both with CUDA events
+     (median of 20 runs after warm-up): the dense FE (K1), the sparse FE
+     (K2) and the fused matcher (K3);
   4. drive ``VisualSystem.process_frame`` on a 4 x 720 x 1280 quad frame
      at the paper's configuration (``PipelineConfig()`` defaults) with
      every launch count set to 0 just before: exactly one launch of each
-     kernel (3 in all), finite outputs of the expected shapes, valid
-     depths on both pairs; then the median frame latency over 20
+     frame kernel (3 in all), finite outputs of the expected shapes,
+     valid depths on both pairs; then the median frame latency over 20
      frames, each stage's median time, a profile of device time by
      kernel with the device's idle share; and the card's session
      against the CPU session (plain versions) on a small integer-valued
      frame;
-  5. print the kernels' JSON line, then ``{"ok": true, "device": ...}``
+  5. the localized path at full width: a ``render_sequence`` of T = 6
+     quad frames at 720p (the renderer's default twist, at most ~35 px
+     of motion at 2 m) through ``process_frame`` with
+     ``PipelineConfig(localize=True)`` — exactly 4 launches a frame,
+     one of each of K1-K4 — and through ``run`` — exactly 3T + 1, with
+     the loop's pose ``valid`` and poses within 1e-5; ATE, RPE-t and
+     RPE-r against the ground truth under limits set at about twice
+     what the card measured, as the JAX package sets its accuracy gates
+     (``benchmarks/run.py``, ``table_localization``); the median
+     latency of a localized frame, the pose solve's share of it and
+     the host synchronisations.  The match-only matcher (K4) is then
+     held against its plain version, and timed, on exactly the inputs
+     its wrapper received on that path: a localized frame's 2 temporal
+     rows and the run's (T - 1) * 2;
+  6. the session's matcher entry points at full width: the sequence's
+     first frame's features from the card session, on both stereo
+     pairs — ``stereo_match``, ``temporal_match`` (to the second
+     frame), ``sad_rectify`` (on the card's own stereo matches) and
+     ``match_pair``, each one launch with the counts set to 0 just
+     before, and each equal to the CPU session on the same inputs;
+     then K4 and the SAD-only matcher (K5) against their plain
+     versions, timed, on the inputs ``stereo_match`` and
+     ``sad_rectify`` gave them, stacked over the two pairs
+     (2 x 1000 x 1000 and 2 x 1000 centers);
+  7. the card's localized session against the CPU session (plain
+     versions) on the JAX tests' small sequence (96 x 128, T = 4,
+     K = 96, baseline 0.5 m, 0.25 m lateral steps), rounded to integer
+     values: the runs' temporal dist/idx and pose ``valid`` equal,
+     poses within 1e-4, and both under the JAX tests' ATE/RPE limits
+     (0.4 m, 0.25 m, 1.0 deg); the four entry points as in phase 6 on
+     the first pair;
+  8. print the kernels' JSON line, then ``{"ok": true, "device": ...}``
      as the last line.
 
 Tolerances: integer and bool outputs, blur and score are bit-equal.
@@ -35,11 +67,15 @@ summation error of two 961-term sums, gamma_n = n u / (1 - n u)), and
 theta to atan2 of the kernel's own moments within 1 ulp.  Descriptors
 are equal wherever the two steering bins agree; the bins may differ only
 for keypoints whose theta lies within the theta difference (4 ulp on
-integer frames) of a bin edge, and that count is printed.
+integer frames) of a bin edge, and that count is printed.  The
+match-only and SAD-only matchers are bit-equal (integer arithmetic,
+first-occurrence argmins).  Poses come from a 3 x 3 SVD whose library
+differs between the card and the CPU, so they are held to a tolerance.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -301,6 +337,98 @@ def check_matcher(images, cfg, intr, kind: str):
     return stats
 
 
+def device_ms(fn, symbol: str, reps: int = REPS):
+    """Median device time (ms) of the kernel whose name holds ``symbol``
+    over ``reps`` calls of ``fn``, from ``torch.profiler``; None when the
+    profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if symbol in e.name and str(e.device_type).endswith("CUDA")]
+    return statistics.median(times) if times else None
+
+
+def check_match_only(args, kw, kind: str):
+    """K4 against its plain version on (desc_l, meta_l, desc_r, meta_r)
+    (bit-equal dist and idx), timed; the bound counts the search-region
+    test of every valid left feature against every right feature and
+    the Hamming distance of the pairs inside the region."""
+    from repro_torch.kernels import match_fused as mo
+    from repro_torch.kernels.hamming_match import masked_hamming
+    out_k = mo.match_fused_cuda(*args, **kw)
+    out_p = mo.match_fused_plain(*args, **kw)
+    torch.cuda.synchronize()
+    bad = {n: int((a != b).sum()) for n, a, b in zip(("dist", "idx"), out_k,
+                                                      out_p)}
+    err = max(float((a.double() - b.double()).abs().max())
+              for a, b in zip(out_k, out_p))
+    b, k, m = args[0].shape[0], args[0].shape[1], args[2].shape[1]
+    log(f"[match-only/{kind}] B={b} K={k} M={m}: mismatches {bad}; "
+        f"{int((out_k[1] >= 0).sum())} candidates found")
+    if any(bad.values()):
+        raise AssertionError(f"match-only kernel disagrees ({kind})")
+    if int((out_k[1] >= 0).sum()) == 0:
+        raise AssertionError(f"match-only kernel found nothing ({kind})")
+    in_region = int((masked_hamming(*args, **kw) < (1 << 20)).sum())
+    n_left = int((args[1][..., 3] > 0.5).sum())
+    stats = dict(ms=time_ms(lambda: mo.match_fused_cuda(*args, **kw)),
+                 device_ms=device_ms(lambda: mo.match_fused_cuda(*args, **kw),
+                                     "match_only_kernel"),
+                 plain_ms=time_ms(lambda: mo.match_fused_plain(*args, **kw)),
+                 max_abs_err=err)
+    stats["bound_ms"], stats["bound_by"] = bound_ms(
+        b * (k + m) * (32 + 16) + b * k * 8, n_left * m * 10 + in_region * 26)
+    log(f"[match-only/{kind}] {stats['ms']:.4f} ms event, device "
+        f"{stats['device_ms']} ms, bound {stats['bound_ms']:.6f} ms "
+        f"({stats['bound_by']}), plain {stats['plain_ms']:.4f} ms, library "
+        "call: none")
+    return stats
+
+
+def check_sad_only(args, kw, kind: str):
+    """K5 against its plain version on (img_l, img_r, xy_l, xy_r)
+    (bit-equal SAD table), timed; the bound counts the pixels the
+    windows and strips cover and every SAD term."""
+    from repro_torch.kernels import sad_fused as so
+    img_l, _, xy_l, xy_r = args
+    win, rng = kw["sad_window"], kw["sad_range"]
+    tab_k = so.sad_fused_cuda(*args, **kw)
+    tab_p = so.sad_fused_plain(*args, **kw)
+    torch.cuda.synchronize()
+    bad = int((tab_k != tab_p).sum())
+    err = float((tab_k - tab_p).abs().max())
+    p, k = xy_l.shape[0], xy_l.shape[1]
+    sweep = 2 * rng + 1
+    log(f"[SAD-only/{kind}] P={p} K={k} table {sweep}: mismatches {bad}")
+    if bad:
+        raise AssertionError(f"SAD-only kernel disagrees ({kind})")
+    stats = dict(ms=time_ms(lambda: so.sad_fused_cuda(*args, **kw)),
+                 device_ms=device_ms(lambda: so.sad_fused_cuda(*args, **kw),
+                                     "sad_only_kernel"),
+                 plain_ms=time_ms(lambda: so.sad_fused_plain(*args, **kw)),
+                 max_abs_err=err)
+    h, w = img_l.shape[1:]
+    px = 0
+    for q in range(p):
+        for xy, width in ((xy_l[q], win), (xy_r[q], win + 2 * rng)):
+            xs = torch.round(xy[:, 0]).clamp(0, w - 1)
+            ys = torch.round(xy[:, 1]).clamp(0, h - 1)
+            px += footprint((h, w), xs, ys, win, width, img_l.device)
+    stats["bound_ms"], stats["bound_by"] = bound_ms(
+        px * 4 + p * k * 16 + p * k * sweep * 4,
+        p * k * sweep * win ** 2 * 3)
+    log(f"[SAD-only/{kind}] {stats['ms']:.4f} ms event, device "
+        f"{stats['device_ms']} ms, bound {stats['bound_ms']:.6f} ms "
+        f"({stats['bound_by']}), plain {stats['plain_ms']:.4f} ms, library "
+        "call: none")
+    return stats
+
+
 def stage_times(vs, images, reps: int = REPS):
     """Median host ms of each stage of ``process_frame``, each closed
     by ``torch.cuda.synchronize()`` (so a stage's ms includes its own
@@ -378,6 +506,299 @@ def profile_frames(vs, images, n: int = 5) -> dict:
     return {key: ms for ms, _, key in rows}
 
 
+# ATE / RPE limits of the 720p localized run, at about twice what the
+# card measured (see PERF.md), as the JAX package pins its accuracy
+# gates; the small sequence uses the JAX tests' own limits.
+LOC_LIMITS = {"ate_rmse_m": 0.5, "rpe_trans_rmse_m": 0.16,
+              "rpe_rot_mean_deg": 0.13}
+SMALL_LIMITS = {"ate_rmse_m": 0.4, "rpe_trans_rmse_m": 0.25,
+                "rpe_rot_mean_deg": 1.0}
+SEQ_T = 6
+LOC_KERNELS = ("frontend_fused_pyramid", "describe_fused_pyramid",
+               "match_rectify_fused", "match_fused")
+
+
+@contextlib.contextmanager
+def recorded(module):
+    """Record every call of a kernel module's dispatch (the function of
+    the module's own name, just in front of the kernel's wrapper) made
+    while the block runs, as a list of (args, kwargs, output)."""
+    name = module.__name__.rsplit(".", 1)[1]
+    dispatch = getattr(module, name)
+    calls = []
+
+    def record(*args, **kwargs):
+        out = dispatch(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    setattr(module, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, dispatch)
+
+
+def stacked(calls):
+    """One kernel input from several recorded calls: their arguments
+    concatenated along the batch axis, and the first call's options."""
+    return (tuple(torch.cat(x) for x in zip(*(c[0] for c in calls))),
+            calls[0][1])
+
+
+def reset_counts() -> None:
+    from repro_torch.kernels import ops
+    for k in ops.KERNELS.values():
+        k.launches = 0
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels import ops
+    return {name: k.launches for name, k in ops.KERNELS.items()}
+
+
+def check_metrics(pose, poses, limits, what: str) -> dict:
+    from repro_torch.localization import metrics
+    m = metrics.trajectory_metrics(pose.rotation, pose.translation, poses)
+    log(f"[{what}] ATE {m['ate_rmse_m']:.6f} m, RPE-t "
+        f"{m['rpe_trans_rmse_m']:.6f} m, RPE-r {m['rpe_rot_mean_deg']:.6f} "
+        f"deg over {m['travel_m']:.4f} m travelled (limits {limits})")
+    for key, limit in limits.items():
+        if not m[key] <= limit:
+            raise AssertionError(f"{what}: {key} {m[key]} over {limit}")
+    return m
+
+
+def close_poses(a, b, atol: float, what: str) -> float:
+    if not torch.equal(a.valid.cpu(), b.valid.cpu()):
+        raise AssertionError(f"{what}: pose valid differs")
+    err = max(float((a.rotation.cpu() - b.rotation.cpu()).abs().max()),
+              float((a.translation.cpu() - b.translation.cpu()).abs().max()))
+    if not err <= atol:
+        raise AssertionError(f"{what}: poses differ by {err} > {atol}")
+    return err
+
+
+def localized_phase(cfg, dev):
+    """The localized path at full width (phase 5).  Returns the session
+    and its frames, the launch counts of the loop, the inputs K4
+    received in the loop's last frame and in the run, and the
+    timings."""
+    from repro_torch.core import PipelineConfig, RigConfig, VisualSystem
+    from repro_torch.data import scenes
+    from repro_torch.kernels import match_fused, ops
+    from repro_torch.localization import MIN_CORRESPONDENCES
+    from repro_torch.localization import pose as pose_mod
+    seq = scenes.render_sequence(scenes.SceneConfig(
+        height=cfg.height, width=cfg.width, n_points=1600, seed=0), SEQ_T)
+    vs = VisualSystem(RigConfig.quad(seq.intrinsics),
+                      PipelineConfig(orb=cfg, localize=True), device="cuda")
+    frames = torch.from_numpy(seq.frames).to(dev)
+
+    reset_counts()
+    with recorded(match_fused) as k4_loop, ops.launch_audit() as audit:
+        loop = [vs.process_frame(frames[t]) for t in range(SEQ_T)]
+        torch.cuda.synchronize()
+    loop_counts = read_counts()
+    log(f"[localized loop] {SEQ_T} frames: launches {loop_counts}, audit "
+        f"{audit.count}")
+    if (audit.count != 4 * SEQ_T
+            or any(loop_counts[n] != SEQ_T for n in LOC_KERNELS)
+            or loop_counts["sad_fused"] != 0):
+        raise AssertionError("a localized frame must launch K1-K4 once each")
+    for t, out in enumerate(loop):
+        pose = out.pose
+        if not (bool(torch.isfinite(pose.rotation).all())
+                and bool(torch.isfinite(pose.translation).all())):
+            raise AssertionError("non-finite pose")
+        if t == 0:
+            if bool(pose.valid) or not torch.equal(
+                    pose.rotation, torch.eye(3, device=dev)):
+                raise AssertionError("frame 0 must be identity + invalid")
+        elif not (bool(pose.valid)
+                  and int(pose.inliers) >= MIN_CORRESPONDENCES):
+            raise AssertionError(f"frame {t}: no valid pose")
+    log("[localized loop] inliers "
+        f"{[int(o.pose.inliers) for o in loop]}, valid "
+        f"{[bool(o.pose.valid) for o in loop]}")
+
+    reset_counts()
+    with recorded(match_fused) as k4_run, ops.launch_audit() as audit:
+        run = vs.run(frames)
+        torch.cuda.synchronize()
+    run_counts = read_counts()
+    log(f"[localized run] T={SEQ_T}: launches {run_counts}, audit "
+        f"{audit.count}")
+    if (audit.count != 3 * SEQ_T + 1 or run_counts["match_fused"] != 1
+            or any(run_counts[n] != SEQ_T for n in ops.FRAME_KERNELS)):
+        raise AssertionError("a localized run must be 3T + 1 launches")
+    loop_pose = type(run.pose)(*[torch.stack(x) for x in zip(
+        *[o.pose for o in loop])])
+    err = close_poses(run.pose, loop_pose, 1e-5, "run vs process_frame loop")
+    log(f"[localized run] poses equal the loop's within {err:.3e}")
+    m = check_metrics(run.pose, seq.poses, LOC_LIMITS, "localized run 720p")
+
+    # latency of a localized frame over 20 frames of a ping-pong stream
+    order = list(range(SEQ_T)) + list(range(SEQ_T - 2, 0, -1))
+    stream = [frames[order[i % len(order)]] for i in range(REPS + 3)]
+    vs.reset_localization()
+    lat = []
+    for i, f in enumerate(stream):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vs.process_frame(f)
+        torch.cuda.synchronize()
+        if i >= 3:
+            lat.append((time.perf_counter() - t0) * 1e3)
+    # the stages of a localized frame, each closed by a synchronize
+    stages = {"frontend (K1-K3)": [], "backend (points + K4 + solve)": [],
+              "solve": []}
+    prev = vs._loc_state
+    for f in stream[:REPS]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = vs._frame_core(f)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        vs._localize_frame(out, prev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        stages["frontend (K1-K3)"].append((t1 - t0) * 1e3)
+        stages["backend (points + K4 + solve)"].append((t2 - t1) * 1e3)
+    pts = run.points[1]
+    w = run.stereo.features_l.valid[1] & run.stereo.depth.valid[1]
+    pp = pts.reshape(1, -1, 3)
+    wf = w.reshape(1, -1).float()
+    for _ in range(REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pose_mod.solve_pose_batched(pp, pp, wf)
+        torch.cuda.synchronize()
+        stages["solve"].append((time.perf_counter() - t0) * 1e3)
+    syncs = {"frame": host_syncs(lambda: vs.process_frame(stream[0])),
+             "backend": host_syncs(lambda: vs._localize_frame(out, prev)),
+             "solve": host_syncs(
+                 lambda: pose_mod.solve_pose_batched(pp, pp, wf))}
+    frame_ms = statistics.median(lat)
+    med = {k: statistics.median(v) for k, v in stages.items()}
+    log(f"[localized frame] latency median {frame_ms:.4f} ms over {REPS} "
+        f"frames (min {min(lat):.4f}, max {max(lat):.4f})")
+    for k, v in med.items():
+        log(f"[localized stages] {k}: {v:.4f} ms (median of {REPS})")
+    log(f"[localized frame] solve share {med['solve'] / frame_ms:.4f}; "
+        f"synchronizing calls (torch.cuda sync debug mode): {syncs}")
+    return (vs, frames, loop_counts, k4_loop[-1][:2], k4_run[0][:2],
+            dict(frame_ms=frame_ms, stages=med, metrics=m, host_syncs=syncs))
+
+
+def host_syncs(fn) -> int:
+    """How many synchronizing CUDA calls ``fn()`` makes, as PyTorch's
+    sync debug mode reports them (it names the calls it detects; the
+    mode is a prototype and may miss some)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing CUDA operation" in str(c.message)
+               for c in caught)
+
+
+def entry_points(card, cpu, source, frame0, frame1, pairs, what: str):
+    """The session's matcher entry points on ``frame0``'s stereo
+    ``pairs`` (``temporal_match``: each pair's left camera to
+    ``frame1``), on features and caller-given matches from the session
+    ``source``.  Each call on the ``card`` session is one launch of its
+    kernel, with the counts set to 0 just before it, and equals the
+    ``cpu`` session on the same inputs.  Returns the launches of each
+    kernel summed over the calls, and the calls K4 (``stereo_match``)
+    and K5 (``sad_rectify``) received."""
+    from repro_torch.core.types import map_fields
+    from repro_torch.kernels import match_fused, ops, sad_fused
+    f0, f1 = source.extract(frame0), source.extract(frame1)
+    total = dict.fromkeys(ops.KERNELS, 0)
+    k4, k5 = [], []
+    for cl, cr in pairs:
+        fl, fr = (map_fields(lambda x: x[c], f0) for c in (cl, cr))
+        fl1 = map_fields(lambda x: x[cl], f1)
+        img_l, img_r = frame0[cl], frame0[cr]
+        m = source.stereo_match(fl, fr)
+        calls = {
+            "stereo_match": ("match_fused",
+                             lambda vs: vs.stereo_match(fl, fr)),
+            "temporal_match": ("match_fused",
+                               lambda vs: vs.temporal_match(fl, fl1)),
+            "sad_rectify": ("sad_fused", lambda vs: vs.sad_rectify(
+                img_l, img_r, fl, fr, m)),
+            "match_pair": ("match_rectify_fused",
+                           lambda vs: vs.match_pair(img_l, img_r, fl, fr)),
+        }
+        for name, (kernel, call) in calls.items():
+            reset_counts()
+            with recorded(match_fused) as r4, recorded(sad_fused) as r5, \
+                    ops.launch_audit() as audit:
+                got = call(card)
+                torch.cuda.synchronize()
+            counts = read_counts()
+            for n, c in counts.items():
+                total[n] += c
+            if name == "stereo_match":
+                k4 += r4
+            if name == "sad_rectify":
+                k5 += r5
+            want = call(cpu)
+            flat_g = [x for t in (got if isinstance(got, tuple) and not hasattr(
+                got, "_fields") else (got,)) for x in t]
+            flat_c = [x for t in (want if isinstance(want, tuple) and not
+                                  hasattr(want, "_fields") else (want,))
+                      for x in t]
+            same = all(torch.equal(a.cpu(), b) for a, b in zip(flat_g, flat_c))
+            log(f"[entry points/{what}] {name} pair ({cl}, {cr}): "
+                f"{audit.count} launch ({kernel} {counts[kernel]}), equal to "
+                f"the CPU session: {same}")
+            if audit.count != 1 or counts[kernel] != 1 or not same:
+                raise AssertionError(f"{name}: one launch, equal to the CPU")
+    return total, k4, k5
+
+
+def small_sequence_phase():
+    """The card's localized session against the CPU session (phase 7)."""
+    from repro_torch.core import (ORBConfig, PipelineConfig, RigConfig,
+                                  VisualSystem)
+    from repro_torch.data import scenes
+    from repro_torch.kernels import match_fused
+    seq = scenes.render_sequence(scenes.SceneConfig(
+        height=96, width=128, baseline=0.5, seed=1), 4,
+        step_t=(0.25, 0.0, 0.1), yaw_per_frame=0.0)
+    frames = np.round(seq.frames)
+    pipe = PipelineConfig(orb=ORBConfig(height=96, width=128,
+                                        max_features=96, fast_threshold=15),
+                          localize=True)
+    rig = RigConfig.quad(seq.intrinsics)
+    card = VisualSystem(rig, pipe, device="cuda")
+    cpu = VisualSystem(rig, pipe, device="cpu")
+    with recorded(match_fused) as k4_card:
+        rg = card.run(frames)
+        torch.cuda.synchronize()
+    with recorded(match_fused) as k4_cpu:
+        rc = cpu.run(frames)
+    dg, dc = k4_card[0][2], k4_cpu[0][2]
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(dg, dc)):
+        raise AssertionError("card and CPU temporal matches differ")
+    err = close_poses(rg.pose, rc.pose, 1e-4, "card vs CPU localized run")
+    log(f"[small sequence] temporal dist/idx equal "
+        f"({int((dc[1] >= 0).sum())} candidates), pose valid equal "
+        f"{rc.pose.valid.tolist()}, poses within {err:.3e}")
+    check_metrics(rg.pose, seq.poses, SMALL_LIMITS, "small sequence, card")
+    check_metrics(rc.pose, seq.poses, SMALL_LIMITS, "small sequence, CPU")
+    entry_points(card, cpu, cpu, frames[0], frames[1], rig.pairs[:1],
+                 "96x128")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -435,14 +856,13 @@ def main() -> int:
     # 4. the main path through the session entry point
     vs = VisualSystem(RigConfig.quad(intr), PipelineConfig(), device="cuda")
     images = torch.from_numpy(frame).to(dev)
-    for k in ops.KERNELS.values():
-        k.launches = 0
+    reset_counts()
     with ops.launch_audit() as audit:
         out = vs.process_frame(images)
         torch.cuda.synchronize()
-    launches = {name: k.launches for name, k in ops.KERNELS.items()}
+    launches = read_counts()
     log(f"[main path] launches {launches}, audit {audit.count}")
-    if audit.count != 3 or any(v != 1 for v in launches.values()):
+    if audit.count != 3 or any(launches[n] != 1 for n in ops.FRAME_KERNELS):
         raise AssertionError("process_frame must launch each kernel once")
     k_feat = cfg.max_features
     for f in (out.features_l, out.features_r):
@@ -477,7 +897,7 @@ def main() -> int:
 
     for name, ms in stage_times(vs, images).items():
         log(f"[stages] {name}: {ms:.4f} ms (median of {REPS})")
-    device_ms = profile_frames(vs, images)
+    profiled = profile_frames(vs, images)
 
     # the card against the CPU plain versions on a small integer frame,
     # both fed the same pyramid levels
@@ -518,7 +938,26 @@ def main() -> int:
         f"{int(desc_diff.sum())} descriptors differ at a bin edge"
         f"{'' if not desc_diff.any() else '; matches not compared'})")
 
-    # 5. result lines
+    # 5. the localized path at full width, and K4 on the inputs it
+    #    received there
+    vs_loc, seq_frames, loop_counts, k4_frame, k4_run, loc = (
+        localized_phase(cfg, dev))
+    mo_frame = check_match_only(*k4_frame, "temporal, localized frame 720p")
+    mo_run = check_match_only(*k4_run, f"temporal, run 720p T={SEQ_T}")
+
+    # 6. the matcher entry points at full width, and K4 and K5 on the
+    #    inputs they received there
+    cpu_loc = VisualSystem(vs_loc.rig, vs_loc.pipe, device="cpu")
+    entry_counts, k4_stereo, k5_calls = entry_points(
+        vs_loc, cpu_loc, vs_loc, seq_frames[0], seq_frames[1],
+        vs_loc.rig.pairs, "720p")
+    mo_stereo = check_match_only(*stacked(k4_stereo), "stereo_match 720p")
+    sad_stats = check_sad_only(*stacked(k5_calls), "sad_rectify 720p")
+
+    # 7. the card's session against the CPU session, small sequence
+    small_sequence_phase()
+
+    # 8. result lines
     kernels = []
     meta = {
         "frontend_fused_pyramid": (
@@ -536,7 +975,7 @@ def main() -> int:
               "match_rectify_fused": "match_kernel"}
     for name, (source, replaces, i) in meta.items():
         st = results["float"][i]
-        prof = [ms for key, ms in device_ms.items() if symbol[name] in key]
+        prof = [ms for key, ms in profiled.items() if symbol[name] in key]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
@@ -546,8 +985,31 @@ def main() -> int:
             "ms_integer_frames": results["integer"][i]["ms"],
             "profiled_device_ms": prof[0] if prof else None,
         })
+    for name, source, replaces, st, n, extra in (
+            ("match_fused", "src/repro_torch/kernels/csrc/match_fused.cu",
+             "src/repro/kernels/matcher_fused.py:239", mo_frame,
+             loop_counts["match_fused"],
+             {f"{what}_{k}": got[k] for what, got in (("run", mo_run),
+                                                     ("stereo", mo_stereo))
+              for k in ("ms", "device_ms", "plain_ms", "bound_ms")}),
+            ("sad_fused", "src/repro_torch/kernels/csrc/sad_fused.cu",
+             "src/repro/kernels/matcher_fused.py:275", sad_stats,
+             entry_counts["sad_fused"], {})):
+        if n < 1:
+            raise AssertionError(f"{name} was not launched on its path")
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": n,
+            "max_abs_err": st["max_abs_err"], "ms": st["ms"],
+            "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+            "bound_by": st["bound_by"], "library_ms": None,
+            "profiled_device_ms": st["device_ms"], **extra})
     print(json.dumps({"kernels": kernels,
-                      "frame_ms_median": statistics.median(frame_ms)}))
+                      "frame_ms_median": statistics.median(frame_ms),
+                      "localized_frame_ms_median": loc["frame_ms"],
+                      "localized_stage_ms": loc["stages"],
+                      "localized_metrics": loc["metrics"],
+                      "localized_host_syncs": loc["host_syncs"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind_name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,9 +1,10 @@
 """PyTorch/CUDA port of the quad-camera ORB visual frontend.
 
 ``repro_torch`` mirrors the JAX/Pallas package ``repro`` module for
-module (``core/``, ``kernels/``, ``data/``) and runs the session's main
-path, ``VisualSystem.process_frame``, with PyTorch around three kernels
-written by hand in CUDA C++ for Hopper (``kernels/csrc/``).  It imports
+module (``core/``, ``kernels/``, ``localization/``, ``data/``) and runs
+the session's frame path (``VisualSystem.process_frame``), its localized
+form and ``run``, and the matcher entry points, with PyTorch around five
+kernels written by hand in CUDA C++ for Hopper (``kernels/csrc/``).  It imports
 neither jax nor any module of ``repro``; the comparison tests under
 ``tests/port/`` are the only code that imports both.
 

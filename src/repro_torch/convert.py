@@ -1,20 +1,23 @@
 """Carry a JAX-package configuration across to the port.
 
 The system has no learned weights: what crosses from the JAX package is
-its configuration (``ORBConfig``, ``RigConfig``, ``CameraIntrinsics``)
-and its ROM, the descriptor steering LUT.  The functions below take
-``dataclasses.asdict(...)`` of the JAX objects — plain Python and numpy,
-so this module needs neither jax nor the ``repro`` package — and build
-the port's objects.
+its configuration (``ORBConfig``, ``RigConfig``, ``CameraIntrinsics``),
+its ROM, the descriptor steering LUT, and the localization backend's
+cross-frame state.  The functions below take plain Python and numpy —
+``dataclasses.asdict(...)`` of the JAX configs, ``._asdict()`` of a JAX
+state with its fields as numpy arrays — so this module needs neither
+jax nor the ``repro`` package, and build the port's objects.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.rig import RigConfig
 from repro_torch.core.sync import TriggerConfig
-from repro_torch.core.types import CameraIntrinsics, ORBConfig
+from repro_torch.core.types import (CameraIntrinsics, LocalizationState,
+                                    ORBConfig)
 from repro_torch.kernels import pattern
 
 
@@ -38,6 +41,21 @@ def rig_config_from_reference(d: dict) -> RigConfig:
         d["sync"] = TriggerConfig(**d["sync"])
     d["pairs"] = tuple(tuple(p) for p in d["pairs"])
     return RigConfig(**d)
+
+
+def localization_state_from_reference(d: dict) -> LocalizationState:
+    """The port's ``LocalizationState`` from a JAX one's fields as numpy
+    (``{k: np.asarray(v) for k, v in state._asdict().items()}``): the
+    uint32 descriptors become the port's int32 bit-views."""
+    def tensor(x, dtype):
+        return torch.from_numpy(np.array(x, dtype=dtype))
+
+    return LocalizationState(
+        desc=tensor(np.asarray(d["desc"], np.uint32).view(np.int32),
+                    np.int32),
+        meta=tensor(d["meta"], np.float32),
+        points=tensor(d["points"], np.float32),
+        valid=tensor(d["valid"], bool))
 
 
 def steer_lut() -> np.ndarray:

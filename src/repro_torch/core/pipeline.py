@@ -1,17 +1,25 @@
 """`VisualSystem` — the session API of the quad-camera visual frontend
-(port of ``repro.core.pipeline``, main path).
+(port of ``repro.core.pipeline``).
 
 A session is built once from a ``RigConfig`` (cameras, stereo pairs,
-intrinsics, sync spec) and a ``PipelineConfig`` (ORB parameters), on a
-device, and then streams frames:
+intrinsics, sync spec) and a ``PipelineConfig`` (ORB parameters,
+temporal match radii, localization on or off), on a device, and then
+streams frames:
 
     vs = VisualSystem(RigConfig.quad(intr), PipelineConfig(orb=ocfg))
     out = vs.process_frame(images)     # (n_cameras, H, W) -> (P,) axes
+    outs = vs.run(frames)              # (T, n_cameras, H, W) -> (T, P)
 
 A frame costs exactly THREE kernel launches: one dense FE and one
 sparse FE launch for every camera at every pyramid level, and one
-fused matcher launch for every stereo pair.  PyTorch runs eagerly, so
-the JAX session's jit cache has no counterpart here.
+fused matcher launch for every stereo pair.  With
+``PipelineConfig(localize=True)`` a frame returns a
+``LocalizationOutput`` (rig-frame points and the relative pose since the
+previous frame) for ONE more launch, the match-only temporal matcher; a
+localized ``run`` of T frames folds all T - 1 transitions into that one
+launch (3T + 1 in all).  PyTorch runs eagerly, so the JAX session's jit
+cache has no counterpart here, and ``run`` is a Python loop over frames
+where the JAX package scans.
 
 The session runs on ``device`` ("cuda" unless the caller asks for the
 CPU); on the CPU every kernel runs its plain PyTorch version.  There
@@ -28,11 +36,17 @@ import typing
 import numpy as np
 import torch
 
+from repro_torch import localization
 from repro_torch.core import matching, orb
 from repro_torch.core import sync as sync_mod
 from repro_torch.core.rig import DesyncError, RigConfig
-from repro_torch.core.types import (FeatureSet, ORBConfig, StereoOutput,
+from repro_torch.core.types import (DepthSet, FeatureSet,
+                                    LocalizationOutput, LocalizationState,
+                                    MatchSet, ORBConfig, PoseSet,
+                                    StereoOutput, combine_fields,
                                     map_fields)
+from repro_torch.kernels import ops
+from repro_torch.localization import pose as pose_solver
 
 _SCHEDULES = ("sequential", "pipelined")
 _PRECISIONS = ("f32", "uint8")
@@ -53,12 +67,19 @@ class PipelineConfig:
     """How frames are processed (the rig says WHAT is processed).
 
     The port runs the sequential schedule at the quantized float32
-    precision.  ``precision="uint8"`` (ROADMAP A6), ``localize=True``
-    (A7) and ``schedule="pipelined"`` (A5) are later slices and raise
+    precision.  ``localize`` turns on the localization backend
+    (``repro_torch.localization``): ``process_frame`` and ``run`` then
+    return a ``LocalizationOutput`` for one more launch a frame (one in
+    all for ``run``).  ``temporal_radius`` (x) and ``temporal_radius_y``
+    (y; None = the x radius) bound the frame-to-frame search window of
+    ``temporal_match`` and the backend.  ``precision="uint8"`` (ROADMAP
+    A6) and ``schedule="pipelined"`` (A5) are later slices and raise
     ``NotImplementedError``."""
 
     orb: ORBConfig = ORBConfig()
     schedule: str = "sequential"
+    temporal_radius: float = 48.0
+    temporal_radius_y: float | None = None
     precision: str = "f32"
     localize: bool = False
 
@@ -77,9 +98,6 @@ class PipelineConfig:
         if self.precision == "uint8":
             raise NotImplementedError(
                 "precision='uint8' is not ported yet (ROADMAP A6)")
-        if self.localize:
-            raise NotImplementedError(
-                "localize=True is not ported yet (ROADMAP A7)")
 
 
 class VisualSystem:
@@ -104,16 +122,23 @@ class VisualSystem:
             maxlen=4096)
         self._li, self._ri = self._flat_pair_indices()
         self._intr = self._fm_intr()
+        # Localization memory: the previous processed frame's state,
+        # written only when PipelineConfig.localize is on.  Callers that
+        # keep their own state pass ``prev=`` instead.
+        self._loc_state: LocalizationState | None = None
 
     # -- shape / sync validation (eager) -----------------------------------
 
-    def _check_images(self, images, what: str) -> None:
+    def _check_images(self, images, what: str,
+                      sequence: bool = False) -> None:
         shape = tuple(images.shape)
-        if len(shape) != 3:
+        want_nd = 4 if sequence else 3
+        if len(shape) != want_nd:
             raise ValueError(
-                f"{what} expects a rank-3 array (n_cameras, H, W); got "
+                f"{what} expects a rank-{want_nd} array "
+                f"({'T, ' if sequence else ''}n_cameras, H, W); got "
                 f"shape {shape}")
-        c, h, w = shape
+        c, h, w = shape[-3:]
         if c != self.rig.n_cameras:
             raise ValueError(
                 f"{what}: camera axis is {c} but the rig has "
@@ -123,6 +148,11 @@ class VisualSystem:
             raise ValueError(
                 f"{what}: image shape ({h}, {w}) does not match "
                 f"PipelineConfig.orb ({cfg.height}, {cfg.width})")
+        if sequence and shape[0] == 0:
+            raise ValueError(
+                f"{what}: empty sequence (T == 0); the "
+                f"{self.pipe.schedule!r} schedule needs at least one "
+                "frame")
         self._check_dtype(images, what)
 
     def _check_dtype(self, images, what: str) -> None:
@@ -255,12 +285,124 @@ class VisualSystem:
         return torch.as_tensor(np.asarray(images, np.float32),
                                device=self.device).contiguous()
 
+    def _on_device(self, tup):
+        """A caller's output NamedTuple (features, matches, a state) on
+        the session's device."""
+        return map_fields(lambda x: torch.as_tensor(x).to(self.device), tup)
+
+    def _run_core(self, frames) -> StereoOutput:
+        """The sequential schedule: the 3-launch frame path over every
+        frame in order (the JAX package's ``lax.scan``), stacked into
+        (T, n_pairs, ...) outputs."""
+        outs = [self._frame_core(frames[t]) for t in range(frames.shape[0])]
+        return combine_fields(torch.stack, outs)
+
+    # -- localization engine -------------------------------------------------
+
+    def _temporal_radii(self) -> tuple[float, float]:
+        rx = float(self.pipe.temporal_radius)
+        ry = (rx if self.pipe.temporal_radius_y is None
+              else float(self.pipe.temporal_radius_y))
+        return rx, ry
+
+    def _solve(self, prev: LocalizationState, curr: LocalizationState,
+               n_rows: int) -> PoseSet:
+        """ONE temporal-match launch over the flat (n_rows * n_pairs, K)
+        states, then the robust solve batched over the n_rows rows
+        (each row's pairs fused into one point cloud)."""
+        p, k = self.rig.n_pairs, curr.valid.shape[-1]
+        rx, ry = self._temporal_radii()
+        pp, cp, w = pose_solver.temporal_correspondences(
+            prev, curr, self.pipe.orb, rx, ry)
+        return pose_solver.solve_pose_batched(
+            pp.reshape(n_rows, p * k, 3), cp.reshape(n_rows, p * k, 3),
+            w.reshape(n_rows, p * k))
+
+    def _localize_frame(self, out: StereoOutput, prev: LocalizationState):
+        """Backend stage of one frame: rig-frame points (no launch), ONE
+        temporal-match launch and the robust solve.  Returns (points
+        (P, K, 3), scalar PoseSet)."""
+        pts = localization.rig_points(out.features_l.xy, out.depth.depth,
+                                      self.rig)
+        curr = localization.state_from(LocalizationOutput(out, pts, None))
+        pose = self._solve(prev, curr, 1)
+        return pts, map_fields(lambda x: x[0], pose)
+
+    def _invalid_pose(self, n: int) -> PoseSet:
+        return PoseSet(
+            rotation=torch.eye(3, device=self.device).expand(n, 3, 3).clone(),
+            translation=torch.zeros(n, 3, device=self.device),
+            inliers=torch.zeros(n, dtype=torch.int32, device=self.device),
+            valid=torch.zeros(n, dtype=torch.bool, device=self.device))
+
+    def _run_loc(self, frames) -> LocalizationOutput:
+        """Localized sequence: the frontend over every frame (3 launches
+        each) plus ONE temporal-match launch for ALL T - 1 transitions
+        (time folds into the matcher's batch axis), then the (T - 1)-way
+        batched solve.  Pose row 0 is identity + invalid (no
+        predecessor)."""
+        outs = self._run_core(frames)
+        t_total = frames.shape[0]
+        pts = localization.rig_points(outs.features_l.xy, outs.depth.depth,
+                                      self.rig)            # (T, P, K, 3)
+        pose = self._invalid_pose(1)
+        if t_total > 1:
+            state = localization.state_from(
+                LocalizationOutput(outs, pts, None))
+
+            def flat(sl):
+                return map_fields(
+                    lambda x: x[sl].reshape((-1,) + x.shape[2:]), state)
+
+            moved = self._solve(flat(slice(None, -1)), flat(slice(1, None)),
+                                t_total - 1)
+            pose = combine_fields(torch.cat, [pose, moved])
+        return LocalizationOutput(outs, pts, pose)
+
+    def _resolve_prev(self, prev, out: StereoOutput,
+                      what: str) -> LocalizationState:
+        """Previous-frame state for a localized frame: the caller's
+        explicit ``prev`` (validated eagerly), else the session's stored
+        state, else the all-invalid zero state (session start: the solve
+        degenerates to identity + invalid)."""
+        k = out.features_l.valid.shape[-1]
+        if prev is None:
+            prev = self._loc_state
+        if prev is None:
+            return localization.zero_state(self.rig.n_pairs, k,
+                                           device=self.device)
+        if not isinstance(prev, LocalizationState):
+            raise TypeError(
+                f"{what}: prev must be a LocalizationState "
+                f"(see repro_torch.localization.state_from), got "
+                f"{type(prev)!r}")
+        want = (self.rig.n_pairs, k, 3)
+        got = tuple(prev.points.shape)
+        if got != want:
+            raise ValueError(
+                f"{what}: prev.points shape {got} does not match {want} "
+                "— the state must come from the same rig layout and "
+                "feature budget")
+        return self._on_device(prev)
+
+    def reset_localization(self) -> None:
+        """Forget the cross-frame localization state: the next
+        ``process_frame`` behaves like a session start (identity +
+        invalid pose).  Call between unrelated sequences."""
+        self._loc_state = None
+
     # -- entry points --------------------------------------------------------
 
-    def process_frame(self, images, timestamps=None,
-                      camera_mask=None) -> StereoOutput | None:
+    def process_frame(self, images, timestamps=None, camera_mask=None,
+                      prev: LocalizationState | None = None
+                      ) -> StereoOutput | LocalizationOutput | None:
         """One rig frame: (n_cameras, H, W) float -> StereoOutput with
-        leading (n_pairs,) axes, in exactly 3 kernel launches.
+        leading (n_pairs,) axes, in exactly 3 kernel launches.  With
+        ``PipelineConfig.localize`` the return is a
+        ``LocalizationOutput`` (adds rig-frame 3-D points and the
+        relative pose since the previous processed frame) in 4
+        launches; ``prev`` overrides the session-held previous-frame
+        state (``repro_torch.localization.state_from``).
 
         ``timestamps`` ((n_cameras,) seconds) runs the rig's desync
         policy first: ``raise`` raises ``DesyncError``, ``drop_frame``
@@ -275,7 +417,28 @@ class VisualSystem:
                                                            camera_mask)
             if dropped:
                 return None
-        return self._frame_core(self._to_device(images), camera_mask)
+        out = self._frame_core(self._to_device(images), camera_mask)
+        if not self.pipe.localize:
+            return out
+        prev_state = self._resolve_prev(prev, out, "process_frame")
+        pts, pose = self._localize_frame(out, prev_state)
+        lout = LocalizationOutput(out, pts, pose)
+        self._loc_state = localization.state_from(lout)
+        return lout
+
+    def run(self, frames) -> StereoOutput | LocalizationOutput:
+        """A frame sequence (T, n_cameras, H, W) -> StereoOutput with
+        leading (T, n_pairs) axes, on the sequential schedule (3
+        launches a frame).  With ``localize`` on: a
+        ``LocalizationOutput`` whose pose rows are the per-step relative
+        motion (row 0 identity + invalid), for one more launch in all;
+        a sequence neither reads nor writes the ``process_frame``
+        cross-call state."""
+        self._check_images(frames, "run", sequence=True)
+        frames = self._to_device(frames)
+        if self.pipe.localize:
+            return self._run_loc(frames)
+        return self._run_core(frames)
 
     def extract(self, images) -> FeatureSet:
         """FE only: (n_cameras, H, W) -> FeatureSet with a leading
@@ -284,9 +447,85 @@ class VisualSystem:
         return orb.extract_features_batched(self._to_device(images),
                                             self.pipe.orb)
 
+    def match_pair(self, img_l, img_r, feat_l: FeatureSet,
+                   feat_r: FeatureSet) -> tuple[MatchSet, DepthSet]:
+        """FM stage for ONE explicit stereo pair (a pair batch of one
+        through the fused matcher, 1 launch): returns (MatchSet,
+        DepthSet).  Depth uses the first pair's left-camera
+        intrinsics."""
+        fl, fr = self._on_device(feat_l), self._on_device(feat_r)
+        il = self._to_device(img_l)[None]
+        ir = self._to_device(img_r)[None]
+        matches, depth = matching.match_pair_fused(
+            il, ir, map_fields(lambda x: x[None], fl),
+            map_fields(lambda x: x[None], fr), self.pipe.orb,
+            self.rig.pair_intrinsics[0])
+        return (map_fields(lambda x: x[0], matches),
+                map_fields(lambda x: x[0], depth))
+
+    def _match_only(self, feat_l: FeatureSet, meta_l: torch.Tensor,
+                    feat_r: FeatureSet, row_band: float,
+                    max_disparity: float) -> MatchSet:
+        """One match-only launch for one explicit feature pair, then the
+        acceptance gates."""
+        dist, idx = ops.match_rectify_fused(
+            feat_l.desc[None], meta_l[None], feat_r.desc[None],
+            matching._meta(feat_r)[None], row_band=float(row_band),
+            max_disparity=float(max_disparity))
+        return matching._match_set(dist[0], idx[0], feat_l, self.pipe.orb)
+
+    def stereo_match(self, feat_l: FeatureSet,
+                     feat_r: FeatureSet) -> MatchSet:
+        """Best Hamming match in the strip-like search region
+        (Sec. II-C1) through the match-only kernel, 1 launch."""
+        cfg = self.pipe.orb
+        fl, fr = self._on_device(feat_l), self._on_device(feat_r)
+        return self._match_only(fl, matching._meta(fl), fr, cfg.row_band,
+                                cfg.max_disparity)
+
+    def temporal_match(self, feat_a: FeatureSet, feat_b: FeatureSet,
+                       search_radius: float | None = None,
+                       search_radius_y: float | None = None) -> MatchSet:
+        """Frame-to-frame matching for the VO backend (match-only
+        kernel, 1 launch) over a rectangular +-radius window; radii
+        default to ``PipelineConfig.temporal_radius`` /
+        ``temporal_radius_y`` (y falls back to the x radius)."""
+        rx = float(self.pipe.temporal_radius if search_radius is None
+                   else search_radius)
+        ry = search_radius_y
+        if ry is None:
+            ry = (rx if self.pipe.temporal_radius_y is None
+                  else self.pipe.temporal_radius_y)
+        fa, fb = self._on_device(feat_a), self._on_device(feat_b)
+        # the [0, max_disparity] window becomes [-rx, +rx] by shifting
+        # the left x, a float32 tensor add as in the JAX package
+        return self._match_only(fa, pose_solver.shift_x(matching._meta(fa),
+                                                        rx), fb, ry, 2.0 * rx)
+
+    def sad_rectify(self, img_l, img_r, feat_l: FeatureSet,
+                    feat_r: FeatureSet, matches: MatchSet) -> DepthSet:
+        """SAD rectification + disparity/depth (Sec. II-C2, III-D) for
+        one explicit pair and its matches, with in-kernel window reads
+        (the SAD-only kernel, 1 launch).  Depth uses the first pair's
+        left-camera intrinsics."""
+        cfg = self.pipe.orb
+        fl, fr = self._on_device(feat_l), self._on_device(feat_r)
+        m = self._on_device(matches)
+        xy_l = fl.xy
+        xy_r = fr.xy[m.right_index.long()]
+        table = ops.sad_patch_search(
+            self._to_device(img_l)[None], self._to_device(img_r)[None],
+            xy_l[None], xy_r[None], sad_window=cfg.sad_window,
+            sad_range=cfg.sad_range)[0]
+        best = table.argmin(dim=1).float() - float(cfg.sad_range)
+        return matching._depth_set(xy_l[:, 0], xy_r, best, m, cfg,
+                                   self.rig.pair_intrinsics[0])
+
     def process_fleet(self, *args, **kwargs):
         raise NotImplementedError(
             "process_fleet is not ported yet (ROADMAP A5)")
 
-    def run(self, *args, **kwargs):
-        raise NotImplementedError("run is not ported yet (ROADMAP A5)")
+    def run_fleet(self, *args, **kwargs):
+        raise NotImplementedError(
+            "run_fleet is not ported yet (ROADMAP A5)")
+

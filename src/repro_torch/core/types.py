@@ -68,11 +68,75 @@ class StereoOutput(NamedTuple):
     depth: DepthSet
 
 
+class PoseSet(NamedTuple):
+    """Relative rig pose(s) from the localization backend:
+    ``p_curr = rotation @ p_prev + translation`` over rig-frame points.
+    A degenerate solve (first frame, < 3 usable correspondences,
+    collapsed geometry) is exactly identity + ``valid=False``, never
+    NaN.  Leading axes: none for ``process_frame``, ``(T,)`` for
+    ``run``."""
+
+    rotation: torch.Tensor     # (..., 3, 3) float32
+    translation: torch.Tensor  # (..., 3)    float32
+    inliers: torch.Tensor      # (...,)      int32 — final solve support
+    valid: torch.Tensor        # (...,)      bool
+
+
+class LocalizationOutput(NamedTuple):
+    """One localized frame: the stereo output, the rig-frame 3-D points
+    of its left features ((..., n_pairs, K, 3), exactly zero where the
+    feature or its depth is invalid) and the relative ego-motion since
+    the previous frame.  The frontend fields delegate, so
+    ``StereoOutput`` consumers read either type."""
+
+    stereo: StereoOutput
+    points: torch.Tensor       # (..., n_pairs, K, 3) float32, rig frame
+    pose: PoseSet
+
+    @property
+    def features_l(self) -> FeatureSet:
+        return self.stereo.features_l
+
+    @property
+    def features_r(self) -> FeatureSet:
+        return self.stereo.features_r
+
+    @property
+    def matches(self) -> MatchSet:
+        return self.stereo.matches
+
+    @property
+    def depth(self) -> DepthSet:
+        return self.stereo.depth
+
+
+class LocalizationState(NamedTuple):
+    """The previous frame's memory the temporal pose solve consumes
+    (``repro_torch.localization.state_from``): left descriptors (int32
+    bit-views, as ``FeatureSet.desc``), matcher meta rows, rig-frame
+    points and the feature-and-depth usability mask."""
+
+    desc: torch.Tensor         # (..., n_pairs, K, 8) int32
+    meta: torch.Tensor         # (..., n_pairs, K, 4) float32 (x,y,lvl,valid)
+    points: torch.Tensor       # (..., n_pairs, K, 3) float32, rig frame
+    valid: torch.Tensor        # (..., n_pairs, K) bool — feature & depth
+
+
 def map_fields(fn, tup):
     """Apply ``fn`` to every tensor of a (nested) output NamedTuple —
     the port's stand-in for ``jax.tree.map`` over outputs."""
     return type(tup)(*[map_fields(fn, f) if isinstance(f, tuple) else fn(f)
                        for f in tup])
+
+
+def combine_fields(fn, tups):
+    """Join several output NamedTuples of one type leaf by leaf:
+    ``fn`` takes the list of one leaf's tensors (``torch.stack`` over
+    frames, ``torch.cat`` along a batch axis)."""
+    first = tups[0]
+    return type(first)(*[
+        combine_fields(fn, [t[i] for t in tups]) if isinstance(f, tuple)
+        else fn([t[i] for t in tups]) for i, f in enumerate(first)])
 
 
 @dataclasses.dataclass(frozen=True)

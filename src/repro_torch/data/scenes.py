@@ -1,5 +1,5 @@
-"""Synthetic quad-camera scene (numpy-only port of the single-frame part
-of ``repro.data.scenes``).
+"""Synthetic quad-camera scene (numpy-only port of the single-frame and
+sequence parts of ``repro.data.scenes``).
 
 A deterministic 3-D landmark field rendered into the four pinhole views
 of the quad rig (two stereo pairs, front and back).  Landmarks render as
@@ -12,6 +12,7 @@ float32, so the same config renders the same frames.
 from __future__ import annotations
 
 import dataclasses
+import typing
 
 import numpy as np
 
@@ -127,3 +128,38 @@ def render_frame(cfg: SceneConfig) -> tuple[np.ndarray, CameraIntrinsics]:
     intr = default_intrinsics(cfg)
     return (render_quad(pts, tex, np.eye(3), np.zeros(3), intr, cfg),
             intr)
+
+
+class SequenceOutput(typing.NamedTuple):
+    """One rendered trajectory with its ground truth: ``poses`` is the
+    per-frame rig pose [(R, t)] — R maps rig->world, t is the rig's
+    world position, both float32 — the ego-motion the localization
+    backend's accuracy gates compare against."""
+
+    frames: np.ndarray                  # (T, 4, H, W) float32
+    poses: list                         # T x (R (3, 3), t (3,))
+    intrinsics: CameraIntrinsics
+
+
+def render_sequence(cfg: SceneConfig, n_frames: int,
+                    step_t: tuple[float, float, float] = (0.05, 0.0, 0.10),
+                    yaw_per_frame: float = 0.01) -> SequenceOutput:
+    """Deterministic constant-twist trajectory: each frame the rig
+    moves ``step_t`` in its own frame and yaws by ``yaw_per_frame``
+    radians.  The pose recursion runs in float32, as the JAX renderer's
+    does, so frames and poses equal the JAX package's."""
+    f32 = np.float32
+    pts, tex = make_landmarks(cfg)
+    intr = default_intrinsics(cfg)
+    r = np.eye(3, dtype=f32)
+    t = np.zeros(3, f32)
+    dt = np.asarray(step_t, f32)
+    c, s = np.cos(yaw_per_frame), np.sin(yaw_per_frame)
+    dr = np.asarray([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]], f32)
+    frames, poses = [], []
+    for _ in range(n_frames):
+        frames.append(render_quad(pts, tex, r, t, intr, cfg))
+        poses.append((r, t))
+        t = (t + r @ dt).astype(f32)
+        r = (r @ dr).astype(f32)
+    return SequenceOutput(np.stack(frames), poses, intr)

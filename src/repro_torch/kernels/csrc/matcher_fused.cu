@@ -25,20 +25,17 @@
 // are read from the level-0 images in global memory with clamped reads
 // (the TPU kept whole slabs resident in VMEM), truncated to int32 as
 // the reference's astype, and the SAD is summed in int32, so any order
-// is exact.
-#include <cuda_runtime.h>
+// is exact.  The warp's search, window reads and SAD sweep are the
+// helpers of matcher_common.cuh, shared with the match-only and SAD-only
+// kernels.
+#include "matcher_common.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int BIG = 1 << 20;
-constexpr int MAXP = 15;                  // largest window the kernel holds
-constexpr int MAXR = 15;                  // largest sweep half-range
-constexpr unsigned FULL = 0xffffffffu;
+using matcher::MAXP;
+using matcher::MAXR;
 
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
+constexpr int WARPS = 8;
 
 __global__ void __launch_bounds__(WARPS * 32)
 match_kernel(const int* __restrict__ dl, const float* __restrict__ ml,
@@ -64,71 +61,24 @@ match_kernel(const int* __restrict__ dl, const float* __restrict__ ml,
 
   const int* drp = dr + static_cast<long long>(p) * M * 8;
   const float* mrp = mr + static_cast<long long>(p) * M * 4;
-  int best = BIG, bidx = -1;
-  if (lvalid) {
-    for (int j = lane; j < M; j += 32) {
-      const float* m = mrp + 4 * j;
-      const float dx = __fsub_rn(lx, m[0]);
-      const float dy = fabsf(__fsub_rn(ly, m[1]));
-      if (!(dy <= row_band && dx >= 0.f && dx <= max_disp && llv == m[2] &&
-            m[3] > 0.5f))
-        continue;                         // BIG: never improves the min
-      int dd = 0;
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        dd += __popc(d[k] ^ static_cast<unsigned>(drp[8 * j + k]));
-      if (dd < best) {
-        best = dd;
-        bidx = j;
-      }
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const int ob = __shfl_xor_sync(FULL, best, o);
-    const int oi = __shfl_xor_sync(FULL, bidx, o);
-    if (ob < best || (ob == best && oi < bidx)) {
-      best = ob;
-      bidx = oi;
-    }
-  }
+  int best = matcher::BIG, bidx = -1;
+  if (lvalid)                             // uniform over the warp
+    matcher::warp_hamming_argmin(d, lx, ly, llv, drp, mrp, M, row_band,
+                                 max_disp, lane, best, bidx);
 
   const bool ok = bidx >= 0 && best <= max_hamming && lvalid;
   const int eff = ok ? bidx : 0;
   const float rx = mrp[4 * eff], ry = mrp[4 * eff + 1];
 
   // SAD rectification.
-  const int half = patch / 2;
-  const int sw = patch + 2 * sad_range;     // strip width
-  const int xl = clampi(static_cast<int>(rintf(lx)), 0, W - 1);
-  const int yl = clampi(static_cast<int>(rintf(ly)), 0, H - 1);
-  const int xr = clampi(static_cast<int>(rintf(rx)), 0, W - 1);
-  const int yr = clampi(static_cast<int>(rintf(ry)), 0, H - 1);
   const float* imgl = il + static_cast<long long>(p) * H * W;
   const float* imgr = ir + static_cast<long long>(p) * H * W;
-  int* sl = s_l[warp];
-  int* sr = s_r[warp];
-  for (int i = lane; i < patch * patch; i += 32) {
-    const int gy = clampi(yl - half + i / patch, 0, H - 1);
-    const int gx = clampi(xl - half + i % patch, 0, W - 1);
-    sl[i] = static_cast<int>(imgl[static_cast<long long>(gy) * W + gx]);
-  }
-  for (int i = lane; i < patch * sw; i += 32) {
-    const int gy = clampi(yr - half + i / sw, 0, H - 1);
-    const int gx = clampi(xr - sw / 2 + i % sw, 0, W - 1);
-    sr[i] = static_cast<int>(imgr[static_cast<long long>(gy) * W + gx]);
-  }
-  __syncwarp();
-
+  matcher::load_windows(imgl, imgr, H, W, lx, ly, rx, ry, patch, sad_range,
+                        lane, s_l[warp], s_r[warp]);
   int best_sad = 0, best_s = 0;
   for (int s = 0; s <= 2 * sad_range; ++s) {
-    int acc = 0;
-    for (int i = lane; i < patch * patch; i += 32) {
-      const int r = i / patch, c = i % patch;
-      acc += abs(sl[i] - sr[r * sw + c + s]);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(FULL, acc, o);
+    const int acc = matcher::warp_sad(s_l[warp], s_r[warp], patch,
+                                      sad_range, s, lane);
     if (s == 0 || acc < best_sad) {
       best_sad = acc;
       best_s = s;

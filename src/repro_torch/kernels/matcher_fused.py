@@ -22,8 +22,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.hamming_match import BIG, masked_hamming
-from repro_torch.kernels.ref import gather_patches, sad_search
+from repro_torch.kernels.match_fused import match_fused_plain
+from repro_torch.kernels.sad_fused import sad_fused_plain
 
 KERNEL = _build.CudaKernel("matcher_fused", "match_rectify_fused",
                            "ppppppppppiiiiiffiii")
@@ -33,25 +33,18 @@ def match_rectify_fused_plain(desc_l, meta_l, desc_r, meta_r, img_l, img_r,
                               *, row_band: float, max_disparity: float,
                               max_hamming: int, sad_window: int = 11,
                               sad_range: int = 5):
-    """Plain PyTorch version of the fused matcher kernel."""
-    dist_all = masked_hamming(desc_l, meta_l, desc_r, meta_r,
-                              row_band=float(row_band),
-                              max_disparity=float(max_disparity))
-    best, arg = dist_all.min(dim=-1)      # first occurrence of the min
-    idx = torch.where(best >= BIG, torch.full_like(best, -1),
-                      arg.to(torch.int32))
+    """Plain PyTorch version of the fused matcher kernel: the match-only
+    and SAD-only plain versions, joined by the gate."""
+    best, idx = match_fused_plain(desc_l, meta_l, desc_r, meta_r,
+                                  row_band=row_band,
+                                  max_disparity=max_disparity)
     ok = (idx >= 0) & (best <= max_hamming) & (meta_l[..., 3] > 0.5)
     eff = torch.where(ok, idx, torch.zeros_like(idx)).long()
     rxy = torch.gather(meta_r[..., :2], 1,
                        eff[..., None].expand(-1, -1, 2))
-    sad = []
-    for p in range(desc_l.shape[0]):
-        lp = gather_patches(img_l[p], meta_l[p, :, :2], sad_window,
-                            sad_window)
-        rs = gather_patches(img_r[p], rxy[p], sad_window,
-                            sad_window + 2 * sad_range)
-        sad.append(sad_search(lp, rs).argmin(dim=1).to(torch.int32))
-    return best, idx, rxy, torch.stack(sad)
+    table = sad_fused_plain(img_l, img_r, meta_l[..., :2], rxy,
+                            sad_window=sad_window, sad_range=sad_range)
+    return best, idx, rxy, table.argmin(dim=-1).to(torch.int32)
 
 
 def match_rectify_fused_cuda(desc_l, meta_l, desc_r, meta_r, img_l, img_r,

@@ -1,7 +1,7 @@
-"""Dispatch around the port's kernels (port of the main-path part of
+"""Dispatch around the port's kernels (port of the fused-path part of
 ``repro.kernels.ops``).
 
-The three functions below keep the JAX package's signatures (lists of
+The functions below keep the JAX package's signatures (lists of
 per-level (B, h, w) batches in, per-level results out) and own the
 layout the kernels take: the flat slab buffer and its ``SlabTable``,
 the level-sorted keypoint block and its column-level vector.  Which
@@ -22,15 +22,25 @@ import torch
 
 from repro_torch.kernels import describe_fused as _describe
 from repro_torch.kernels import frontend_fused as _frontend
+from repro_torch.kernels import match_fused as _match_only
 from repro_torch.kernels import matcher_fused as _matcher
+from repro_torch.kernels import sad_fused as _sad_only
 from repro_torch.kernels._build import launch_audit  # noqa: F401
 
-#: Every hand-written kernel of the main path, by name.
+#: Every hand-written kernel of the port, by name: the frame's three
+#: (dense FE, sparse FE, fused matcher), then the match-only matcher
+#: (``stereo_match``, ``temporal_match``, localization) and the SAD-only
+#: matcher (``sad_rectify``).
 KERNELS = {
     "frontend_fused_pyramid": _frontend.KERNEL,
     "describe_fused_pyramid": _describe.KERNEL,
     "match_rectify_fused": _matcher.KERNEL,
+    "match_fused": _match_only.KERNEL,
+    "sad_fused": _sad_only.KERNEL,
 }
+#: The kernels of one frame, each launched once by ``process_frame``.
+FRAME_KERNELS = ("frontend_fused_pyramid", "describe_fused_pyramid",
+                 "match_rectify_fused")
 
 
 def flat_levels(levels) -> torch.Tensor:
@@ -100,18 +110,41 @@ def orient_describe_pyramid(raws, smootheds, xys):
     return outs
 
 
-def match_rectify_fused(desc_l, meta_l, desc_r, meta_r, img_l, img_r, *,
-                        row_band: float, max_disparity: float,
+def match_rectify_fused(desc_l, meta_l, desc_r, meta_r, img_l=None,
+                        img_r=None, *, row_band: float, max_disparity: float,
                         max_hamming: int = 0, sad_window: int = 11,
                         sad_range: int = 5):
     """The ENTIRE FM stage of a frame in ONE kernel launch, batched over
     stereo pairs.  desc_*: (P, K, 8)/(P, M, 8) int32 bit-views; meta_*:
     (P, K, 4)/(P, M, 4) float32 rows of (x, y, level, valid); img_*:
     (P, H, W) level-0 images.  Returns (dist, idx, rxy, sad) as
-    ``matcher_fused.match_rectify_fused``."""
+    ``matcher_fused.match_rectify_fused``.
+
+    MATCH-ONLY mode: with ``img_l``/``img_r`` omitted the SAD half is
+    skipped and only (dist, idx) return, from the match-only kernel in
+    one launch (``stereo_match``, ``temporal_match`` and the
+    localization backend route here)."""
+    if img_l is None:
+        return _match_only.match_fused(
+            desc_l.contiguous(), meta_l.contiguous(), desc_r.contiguous(),
+            meta_r.contiguous(), row_band=float(row_band),
+            max_disparity=float(max_disparity))
     return _matcher.match_rectify_fused(
         desc_l.contiguous(), meta_l.contiguous(), desc_r.contiguous(),
         meta_r.contiguous(), img_l.float().contiguous(),
         img_r.float().contiguous(), row_band=float(row_band),
         max_disparity=float(max_disparity), max_hamming=int(max_hamming),
+        sad_window=int(sad_window), sad_range=int(sad_range))
+
+
+def sad_patch_search(img_l, img_r, xy_l, xy_r, *, sad_window: int = 11,
+                     sad_range: int = 5):
+    """SAD sweep with in-kernel patch reads for caller-given match
+    targets (``sad_rectify``'s path), ONE launch.  img_*: (P, H, W)
+    level-0 images; xy_*: (P, K, 2) float32 window centers.  Returns
+    the (P, K, 2 * sad_range + 1) int32 SAD table; the caller takes the
+    argmin."""
+    return _sad_only.sad_fused(
+        img_l.float().contiguous(), img_r.float().contiguous(),
+        xy_l.float().contiguous(), xy_r.float().contiguous(),
         sad_window=int(sad_window), sad_range=int(sad_range))

@@ -7,9 +7,11 @@ has no interpret mode).  Run them on a card with
 (the other files of ``tests/port`` import jax, which a card host may
 not have)
 
-Tolerances as in ``parity.py``: dense FE and the matcher bit-equal; the
-sparse FE under the sparse-FE rule (integer-valued inputs here, so
-moments equal and theta within 1 ulp)."""
+Tolerances as in ``parity.py``: dense FE and the three matchers
+(fused, match-only, SAD-only) bit-equal; the sparse FE under the
+sparse-FE rule (integer-valued inputs here, so moments equal and theta
+within 1 ulp); a localized frame's pose within the CPU tests' pose
+tolerance (the SVD runs in another library on the card)."""
 
 import numpy as np
 import pytest
@@ -17,8 +19,9 @@ import torch
 
 from repro_torch.core import (ORBConfig, PipelineConfig, RigConfig,
                               VisualSystem, fast)
+from repro_torch.data import scenes
 from repro_torch.kernels import (describe_fused, frontend_fused,
-                                 matcher_fused, ops)
+                                 match_fused, matcher_fused, ops, sad_fused)
 
 from parity import (assert_sparse_parity, matcher_case, scene_frames,
                     textured_levels)
@@ -91,7 +94,10 @@ def test_process_frame_is_three_launches_and_matches_cpu(cuda):
         out = vs.process_frame(frame)
         torch.cuda.synchronize()
     assert audit.count == 3
-    assert all(k.launches == before[n] + 1 for n, k in ops.KERNELS.items())
+    assert all(ops.KERNELS[n].launches == before[n] + 1
+               for n in ops.FRAME_KERNELS)
+    assert all(ops.KERNELS[n].launches == before[n] for n in ops.KERNELS
+               if n not in ops.FRAME_KERNELS)
     top = fast.select_topk(torch.zeros(1, 8, 8, device=cuda), 4, 1)
     assert top[0].device.type == "cuda"
     ref = VisualSystem(RigConfig.quad(intr), pipe, device="cpu")
@@ -99,3 +105,56 @@ def test_process_frame_is_three_launches_and_matches_cpu(cuda):
     assert min(out.depth.valid.sum(-1).tolist()) > 0
     assert torch.equal(out.features_l.xy.cpu()[:, :cfg.features_per_level()[0]],
                        feats_cpu.xy[[0, 2]][:, :cfg.features_per_level()[0]])
+
+
+@pytest.mark.parametrize("shift", [0.0, 48.0], ids=["stereo", "temporal"])
+def test_match_only_kernel_equals_plain(cuda, shift):
+    for case in (dict(seed=0), dict(seed=1, ties=True),
+                 dict(seed=3, k=5, m=130)):
+        dl, ml, dr, mr, _, _ = matcher_case(**case)
+        ml = ml.copy()
+        ml[..., 0] += np.float32(shift)
+        args = [torch.from_numpy(a).to(cuda) for a in
+                (dl.view(np.int32), ml, dr.view(np.int32), mr)]
+        kw = dict(row_band=2.0 if shift == 0 else shift,
+                  max_disparity=24.0 if shift == 0 else 2 * shift)
+        got = match_fused.match_fused_cuda(*args, **kw)
+        want = match_fused.match_fused_plain(*args, **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert int((got[1] >= 0).sum()) > 0
+
+
+def test_sad_only_kernel_equals_plain(cuda):
+    dl, ml, dr, mr, il, ir = matcher_case(seed=2, half_centers=True)
+    for xy_l, xy_r in ((ml[..., :2], mr[:, :ml.shape[1], :2]),
+                       (ml[..., :2] * 1.4 - 6.0, ml[..., :2] + 0.5)):
+        args = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+            cuda) for a in (il, ir, xy_l, xy_r)]
+        got = sad_fused.sad_fused_cuda(*args, sad_window=11, sad_range=5)
+        want = sad_fused.sad_fused_plain(*args, sad_window=11, sad_range=5)
+        assert torch.equal(got, want)
+
+
+def test_localized_frame_is_four_launches_and_matches_cpu(cuda):
+    seq = scenes.render_sequence(scenes.SceneConfig(
+        height=96, width=128, baseline=0.5, seed=1), 3,
+        step_t=(0.25, 0.0, 0.1), yaw_per_frame=0.0)
+    cfg = ORBConfig(height=96, width=128, max_features=96,
+                    fast_threshold=15)
+    pipe = PipelineConfig(orb=cfg, localize=True)
+    rig = RigConfig.quad(seq.intrinsics)
+    card, cpu = VisualSystem(rig, pipe), VisualSystem(rig, pipe, "cpu")
+    frames = np.round(seq.frames)
+    for t in range(3):
+        with ops.launch_audit() as audit:
+            got = card.process_frame(frames[t])
+            torch.cuda.synchronize()
+        assert audit.count == 4
+        want = cpu.process_frame(frames[t])
+        assert bool(got.pose.valid) == bool(want.pose.valid) == (t > 0)
+        assert torch.isfinite(got.pose.rotation).all()
+        assert torch.allclose(got.pose.rotation.cpu(), want.pose.rotation,
+                              atol=1e-4)
+        assert torch.allclose(got.pose.translation.cpu(),
+                              want.pose.translation, atol=1e-3)

@@ -29,11 +29,18 @@ def _port_modules():
 
 
 def test_port_imports_without_jax_or_repro():
+    mods = _port_modules()
+    for m in ("repro_torch.core.backend", "repro_torch.kernels.match_fused",
+              "repro_torch.kernels.sad_fused", "repro_torch.localization",
+              "repro_torch.localization.geometry",
+              "repro_torch.localization.metrics",
+              "repro_torch.localization.pose"):
+        assert m in mods, m
     code = (
         "import sys, importlib.util\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
-        f"for m in {_port_modules()!r}:\n"
+        f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', "
         f"{str(SMOKE)!r})\n"

@@ -204,12 +204,11 @@ def test_eager_shape_and_dtype_errors_match_jax(jax_session, images, err):
 
 
 def test_later_slices_raise_not_implemented():
-    for kw in (dict(precision="uint8"), dict(localize=True),
-               dict(schedule="pipelined")):
+    for kw in (dict(precision="uint8"), dict(schedule="pipelined")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PipelineConfig(**kw)
     vs = _port_session()
-    for entry in (vs.process_fleet, vs.run):
+    for entry in (vs.process_fleet, vs.run_fleet):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             entry(np.zeros((1, 4, H, W), np.float32))
     with pytest.raises(ValueError):
