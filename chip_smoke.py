@@ -24,7 +24,28 @@ failure (the script then exits non-zero and prints no result):
      kernel with the device's idle share; and the card's session
      against the CPU session (plain versions) on a small integer-valued
      frame;
-  5. the localized path at full width: a ``render_sequence`` of T = 6
+  5. the single-image FE API at full width, on the 8 level images of
+     phase 4's quad frame (4 cameras x 720 x 1280 and 600 x 1067),
+     integer-valued and float: the FAST score map (K11) and the 7x7
+     blur (K12, quantized and not) bit-equal to their plain versions
+     and to the dense FE's score (after ``nms3``) and blur;
+     ``fast.detect`` with k = ``features_per_level()[l]`` exactly 1
+     launch of K11 and 1 of orientation only (K8), its xy, score and
+     valid equal to the same call on CPU tensors and its moments to
+     that call's by the rule below, its theta held by that rule to the
+     plain version on the card (atan2 differs between the card's
+     library and the CPU's; the largest difference is printed); K8's theta and moments bit-equal to the sparse FE's (K2) on
+     the same keypoints, and ``brief.describe(brief.smooth(level))``
+     equal to K2's descriptors (``smooth`` 1 launch of K12, ``describe``
+     and ``build_pyramid`` none, ``fast.orientations`` 1);
+     ``fast.detect`` on level 0 with a 1-level config equal to
+     ``extract_features`` (xy and theta); ``extract_features`` exactly 1
+     launch of K1 and 1 of K2, equal to the batched extraction.  Then
+     K8, K11 and K12 timed (CUDA events, ``torch.profiler``, plain
+     version, bound, and for K12 the library call ``F.conv2d``) on the
+     level-0 inputs their wrappers received, and the paper's module
+     split (resize, FAST, orientation, smoothing, descriptor: Tab. II);
+  6. the localized path at full width: a ``render_sequence`` of T = 6
      quad frames at 720p (the renderer's default twist, at most ~35 px
      of motion at 2 m) through ``process_frame`` with
      ``PipelineConfig(localize=True)`` — exactly 4 launches a frame,
@@ -38,7 +59,7 @@ failure (the script then exits non-zero and prints no result):
      held against its plain version, and timed, on exactly the inputs
      its wrapper received on that path: a localized frame's 2 temporal
      rows and the run's (T - 1) * 2;
-  6. the session's matcher entry points at full width: the sequence's
+  7. the session's matcher entry points at full width: the sequence's
      first frame's features from the card session, on both stereo
      pairs — ``stereo_match``, ``temporal_match`` (to the second
      frame), ``sad_rectify`` (on the card's own stereo matches) and
@@ -48,14 +69,14 @@ failure (the script then exits non-zero and prints no result):
      versions, timed, on the inputs ``stereo_match`` and
      ``sad_rectify`` gave them, stacked over the two pairs
      (2 x 1000 x 1000 and 2 x 1000 centers);
-  7. the card's localized session against the CPU session (plain
+  8. the card's localized session against the CPU session (plain
      versions) on the JAX tests' small sequence (96 x 128, T = 4,
      K = 96, baseline 0.5 m, 0.25 m lateral steps), rounded to integer
      values: the runs' temporal dist/idx and pose ``valid`` equal,
      poses within 1e-4, and both under the JAX tests' ATE/RPE limits
-     (0.4 m, 0.25 m, 1.0 deg); the four entry points as in phase 6 on
+     (0.4 m, 0.25 m, 1.0 deg); the four entry points as in phase 7 on
      the first pair;
-  8. print the kernels' JSON line, then ``{"ok": true, "device": ...}``
+  9. print the kernels' JSON line, then ``{"ok": true, "device": ...}``
      as the last line.
 
 Tolerances: integer and bool outputs, blur and score are bit-equal.
@@ -64,7 +85,10 @@ an integer below 2**24, so exact in any order) with theta within 1 ulp
 (atan2); on float frames the moment sums run in another order, so each
 moment is held to 2 * gamma_961 * sum|x * p| (the worst-case float32
 summation error of two 961-term sums, gamma_n = n u / (1 - n u)), and
-theta to atan2 of the kernel's own moments within 1 ulp.  Descriptors
+theta to atan2 of the kernel's own moments within 1 ulp and to the
+other theta within the moment difference carried through atan2 (plus
+4 ulp).  Orientation only (K8) runs the sparse FE's (K2) device code,
+so on the same keypoints the two are bit-equal.  Descriptors
 are equal wherever the two steering bins agree; the bins may differ only
 for keypoints whose theta lies within the theta difference (4 ulp on
 integer frames) of a bin edge, and that count is printed.  The
@@ -76,6 +100,7 @@ differs between the card and the CPU, so they are held to a tolerance.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -97,6 +122,8 @@ import torch.nn.functional as F  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 REPS = 20
+# gamma_961 = n u / (1 - n u) of a 961-term float32 sum, u = 2**-24.
+GAMMA_961 = 961 * 2.0 ** -24 / (1 - 961 * 2.0 ** -24)
 
 
 def log(msg: str) -> None:
@@ -170,6 +197,43 @@ DENSE_OPS_PER_PIXEL = 29 + 162 + 7
 SPARSE_OPS_PER_KP = 709 * 4 + 20 + 4 + 256
 
 
+def abs_moment_sums(patches: torch.Tensor) -> torch.Tensor:
+    """(..., 31, 31) raw patches -> (..., 2) sum|x * p| and sum|y * p|,
+    the scale of the float-frame moment bound."""
+    from repro_torch.kernels.ref import moment_grids
+    xg, yg = moment_grids(patches.device)
+    return torch.stack([(patches * xg).abs().sum((-2, -1)),
+                        (patches * yg).abs().sum((-2, -1))], -1)
+
+
+def hold_theta(th_k, mom_k, th_p, mom_p, s_abs, integer: bool, what: str):
+    """Theta and moments of a kernel (``_k``) against another computation
+    of them (``_p``) under the module note's rule; raises where it fails.
+    ``s_abs`` is ``abs_moment_sums`` of the raw patches (float frames
+    only).  Returns (the theta tolerance of each keypoint, for the bin
+    check, and the largest moment difference)."""
+    own = torch.atan2(mom_k[..., 1], mom_k[..., 0])
+    if ulps(th_k, own) > 1:
+        raise AssertionError(f"{what}: theta is not atan2 of its moments")
+    dmom = (mom_k - mom_p).abs()
+    spacing = 4.0 * torch.from_numpy(np.spacing(np.abs(
+        th_p.cpu().numpy()))).to(th_p.device)
+    if integer:
+        if bool((dmom != 0).any()) or ulps(th_k, th_p) > 1:
+            raise AssertionError(
+                f"{what}: moments/theta disagree on integer-valued frames")
+        return spacing, float(dmom.max()) if dmom.numel() else 0.0
+    if bool((dmom > 2 * GAMMA_961 * s_abs).any()):
+        raise AssertionError(f"{what}: moments exceed the float summation "
+                             "bound on float frames")
+    hyp = torch.hypot(mom_p[..., 0], mom_p[..., 1]).clamp(min=1e-30)
+    tol = (dmom.sum(-1) / hyp) * 1.01 + spacing
+    if bool(((th_k.double() - th_p.double()).abs() > tol.double()).any()):
+        raise AssertionError(f"{what}: theta differs by more than its "
+                             "moments allow on float frames")
+    return tol, float(dmom.max()) if dmom.numel() else 0.0
+
+
 def check_dense(levels, cfg, kind: str):
     from repro_torch.kernels import frontend_fused as fe, ops
     flat = ops.flat_levels(levels)
@@ -217,35 +281,15 @@ def check_sparse(levels, dense, cfg, kind: str, integer: bool):
     torch.cuda.synchronize()
     bins_k = torch.remainder(torch.round(th_k * INV_ANGLE_STEP).long(), 12)
     bins_p = torch.remainder(torch.round(th_p * INV_ANGLE_STEP).long(), 12)
-    # theta of the kernel is atan2 of its own moments, within 1 ulp
-    own = torch.atan2(mom_k[..., 1], mom_k[..., 0])
-    if ulps(th_k, own) > 1:
-        raise AssertionError("sparse FE theta is not atan2 of its moments")
-    dmom = (mom_k - mom_p).abs()
-    if integer:
-        if bool((dmom != 0).any()) or ulps(th_k, th_p) > 1:
-            raise AssertionError(
-                "sparse FE moments/theta disagree on integer-valued frames")
-        tol = 4.0 * torch.from_numpy(np.spacing(
-            np.abs(th_p.cpu().numpy()))).to(th_p.device)
-    else:
+    s_abs = None
+    if not integer:
         from repro_torch.kernels.describe_fused import _slab_patches
-        from repro_torch.kernels.ref import moment_grids
         b = xy.shape[0]
         slab = col.long()[None, :] * b + torch.arange(
             b, device=xy.device)[:, None]
-        p = _slab_patches(raw, slab, slabs.table, xy)
-        xg, yg = moment_grids(p.device)
-        s_abs = torch.stack([(p * xg).abs().sum((-2, -1)),
-                             (p * yg).abs().sum((-2, -1))], -1)
-        u = 2.0 ** -24
-        gamma = 961 * u / (1 - 961 * u)
-        if bool((dmom > 2 * gamma * s_abs).any()):
-            raise AssertionError("sparse FE moments exceed the float "
-                                 "summation bound on float frames")
-        hyp = torch.hypot(mom_p[..., 0], mom_p[..., 1]).clamp(min=1e-30)
-        tol = (dmom.sum(-1) / hyp) * 1.01 + 4.0 * torch.from_numpy(
-            np.spacing(np.abs(th_p.cpu().numpy()))).to(th_p.device)
+        s_abs = abs_moment_sums(_slab_patches(raw, slab, slabs.table, xy))
+    tol, err = hold_theta(th_k, mom_k, th_p, mom_p, s_abs, integer,
+                          "sparse FE")
     edge = near_bin_edge(th_p, tol)
     bins_differ = bins_k != bins_p
     if bool((bins_differ & ~edge).any()):
@@ -255,7 +299,6 @@ def check_sparse(levels, dense, cfg, kind: str, integer: bool):
     if bool(desc_bad.any()):
         raise AssertionError("sparse FE descriptors differ where the bins "
                              "agree")
-    err = float(dmom.max().item())
     log(f"[sparse FE/{kind}] {xy.shape[0] * xy.shape[1]} keypoints: max "
         f"|d moment| {err}, max theta diff {ulps(th_k, th_p)} ulp, "
         f"{int(edge.sum())} keypoints within the theta tolerance of a bin "
@@ -519,11 +562,12 @@ LOC_KERNELS = ("frontend_fused_pyramid", "describe_fused_pyramid",
 
 
 @contextlib.contextmanager
-def recorded(module):
-    """Record every call of a kernel module's dispatch (the function of
-    the module's own name, just in front of the kernel's wrapper) made
-    while the block runs, as a list of (args, kwargs, output)."""
-    name = module.__name__.rsplit(".", 1)[1]
+def recorded(module, name: str | None = None):
+    """Record every call of a kernel module's dispatch (the function
+    ``name``, by default the module's own name, just in front of the
+    kernel's wrapper) made while the block runs, as a list of (args,
+    kwargs, output)."""
+    name = name or module.__name__.rsplit(".", 1)[1]
     dispatch = getattr(module, name)
     calls = []
 
@@ -579,8 +623,277 @@ def close_poses(a, b, atol: float, what: str) -> float:
     return err
 
 
+# Float operations a pixel of the standalone FAST score map, counted on
+# the cheapest algorithm known for it (not on K11's brute force, 306):
+# 16 tap differences; for each of the two extrema (min for the bright
+# arcs, max for the dark ones) the 16 circular 9-tap windows by van
+# Herk / Gil-Werman over the ring unrolled to 24 taps in blocks of 9
+# (suffix runs 8 + 8, prefix runs 7 + 5, 14 joins) and 15 more for the
+# extremum over the arcs; then max(bright, -dark) (the negation is an
+# operand modifier), the threshold compare and the select.
+FAST_OPS_PER_PIXEL = 16 + 2 * (8 + 8 + 7 + 5 + 14 + 15) + 3
+# The 7x7 blur a pixel: two passes of 7 multiplies and 6 adds, then the
+# norm's add, divide and floor.
+BLUR_OPS_PER_PIXEL = 2 * 13 + 3
+# Orientation a keypoint: 709 masked pixels x (2 mul + 2 add), atan2.
+ORIENT_OPS_PER_KP = 709 * 4 + 20
+SINGLE_KERNELS = ("fast_score_map", "gaussian_blur7", "orient_fused")
+
+
+def counted(fn, want: dict, what: str):
+    """``fn()`` with every launch count set to 0 just before and read
+    just after; raises unless exactly the launches ``want`` ({kernel:
+    count}) happened.  Returns (output, counts)."""
+    from repro_torch.kernels import ops
+    reset_counts()
+    with ops.launch_audit() as audit:
+        out = fn()
+        torch.cuda.synchronize()
+    counts = read_counts()
+    got = {n: c for n, c in counts.items() if c}
+    if got != want or audit.count != sum(want.values()):
+        raise AssertionError(f"{what}: launches {got} (audit {audit.count}),"
+                             f" expected {want}")
+    return out, counts
+
+
+def equal_or_raise(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
+    if not torch.equal(a.cpu(), b.cpu()):
+        n = int((a.cpu() != b.cpu()).sum())
+        raise AssertionError(f"{what}: {n} of {a.numel()} values differ")
+
+
+def single_image_phase(frame, cfg, dev):
+    """The single-image FE API at 720p (phase 5), on the 8 level images
+    of the quad frame, integer-valued then float: K11 and K12 against
+    their plain versions and K1, ``fast.detect`` (K11 + K8) against the
+    CPU and K8 against K2, ``detect`` against ``extract_features``,
+    ``brief.describe(brief.smooth(...))`` against K2, the launches of
+    every call, then the three kernels timed on the level-0 inputs
+    their wrappers received and the paper's module split.  Returns (the
+    launches of each kernel summed over the entry-point calls, the
+    timing stats, the module split)."""
+    from repro_torch.core import brief, extract_features, fast, pyramid
+    from repro_torch.core.orb import extract_features_batched
+    from repro_torch.kernels import describe_fused as de
+    from repro_torch.kernels import fast_detect as fd
+    from repro_torch.kernels import gaussian_blur as gb
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.frontend_fused import (blur_plain,
+                                                    fast_score_plain)
+    from repro_torch.kernels.ref import extract_patches, nms3
+    ks = cfg.features_per_level()
+    thr = float(cfg.fast_threshold)
+    cfg1 = dataclasses.replace(cfg, n_levels=1)
+    total = dict.fromkeys(ops.KERNELS, 0)
+    first = {}                            # kernel -> its level-0 call
+    for kind, integer in (("integer", True), ("float", False)):
+        images = torch.from_numpy(np.round(frame) if integer
+                                  else frame).to(dev).contiguous()
+        levels = pyramid.build_pyramid_batched(images, cfg)
+        dense = ops.fast_blur_nms_pyramid(levels, thr, nms=cfg.nms,
+                                          quantized=cfg.quantized)
+        batched = extract_features_batched(images, cfg)
+        n_edge = cpu_ulps = 0
+        for lvl, (lv, (k1_blur, k1_score), k) in enumerate(
+                zip(levels, dense, ks)):
+            xys, ths = [], []
+            for cam in range(lv.shape[0]):
+                img = lv[cam]
+                what = f"{kind} level {lvl} camera {cam}"
+                score = ops.fast_score_map(img, thr)
+                equal_or_raise(score, fast_score_plain(img[None], thr)[0],
+                               f"K11 vs plain, {what}")
+                equal_or_raise(nms3(score), k1_score[cam],
+                               f"nms3(K11) vs K1's score, {what}")
+                for q in (True, False):
+                    blur = ops.gaussian_blur7(img, quantized=q)
+                    equal_or_raise(blur, blur_plain(img[None], q)[0],
+                                   f"K12 (quantized={q}) vs plain, {what}")
+                equal_or_raise(ops.gaussian_blur7(img), k1_blur[cam],
+                               f"K12 vs K1's blur, {what}")
+                with recorded(fd, "fast_score_map") as r11, \
+                        recorded(de, "orient_fused") as r8:
+                    (xy, sc, th, ok), counts = counted(
+                        lambda: fast.detect(img, cfg, k),
+                        {"fast_score_map": 1, "orient_fused": 1},
+                        f"fast.detect, {what}")
+                with recorded(de, "orient_fused") as r8_cpu:
+                    xy_c, sc_c, th_c, ok_c = fast.detect(img.cpu(), cfg, k)
+                for a, b, name in ((xy, xy_c, "xy"), (sc, sc_c, "score"),
+                                   (ok, ok_c, "valid")):
+                    equal_or_raise(a, b, f"fast.detect {name} card vs CPU, "
+                                   f"{what}")
+                # moments against the CPU's; theta against the plain
+                # version on the card (the card's atan2f and the CPU's
+                # atan2 are different libraries)
+                mom, mom_c = r8[0][2][1][0], r8_cpu[0][2][1][0]
+                s_abs = None if integer else abs_moment_sums(
+                    extract_patches(img, xy))
+                dmom = (mom - mom_c.to(dev)).abs()
+                if bool((dmom > (0 if integer else 2 * GAMMA_961 * s_abs))
+                        .any()):
+                    raise AssertionError(f"fast.detect moments card vs CPU "
+                                         f"beyond the rule, {what}")
+                th_p, mom_p = de.orient_fused_plain(img[None], xy[None])
+                tol, _ = hold_theta(th, mom, th_p[0], mom_p[0], s_abs,
+                                    integer, f"fast.detect theta, {what}")
+                n_edge += int(near_bin_edge(th_p[0], tol).sum())
+                cpu_ulps = max(cpu_ulps, ulps(th.cpu(), th_c))
+                sm, c_sm = counted(lambda: brief.smooth(img, cfg),
+                                   {"gaussian_blur7": 1}, "brief.smooth")
+                desc, _ = counted(lambda: brief.describe(sm, xy, th), {},
+                                  "brief.describe")
+                _, c_or = counted(lambda: fast.orientations(img, xy),
+                                  {"orient_fused": 1}, "fast.orientations")
+                for c in (counts, c_sm, c_or):
+                    for n, v in c.items():
+                        total[n] += v
+                if not integer and lvl == 0 and cam == 0:
+                    first = {"fast_score_map": r11[0][:2],
+                             "orient_fused": r8[0][:2]}
+                xys.append(xy)
+                ths.append((th, mom, desc))
+            # K8 against K2 on the same keypoints, and brief against K2
+            xy = torch.stack(xys).contiguous()
+            th2, mom2, desc2 = de.describe_fused_pyramid_cuda(
+                ops.flat_levels([lv]), ops.flat_levels([k1_blur]),
+                ops._slabs_of([lv]), xy, ops._col_levels((k,), str(dev)))
+            for cam, (th, mom, desc) in enumerate(ths):
+                what = f"{kind} level {lvl} camera {cam}"
+                equal_or_raise(th, th2[cam], f"K8 theta vs K2's, {what}")
+                equal_or_raise(mom, mom2[cam], f"K8 moments vs K2's, {what}")
+                equal_or_raise(desc, desc2[cam],
+                               f"brief.describe(brief.smooth) vs K2, {what}")
+        log(f"[single image/{kind}] 8 level images: K11 == plain, nms3(K11) "
+            "== K1 score, K12 == plain (both quantized) == K1 blur, detect "
+            "== CPU (xy, score, valid; moments by rule; theta by rule "
+            f"against plain on the card, {n_edge} keypoints within its "
+            f"tolerance of a bin edge; card vs CPU theta {cpu_ulps} ulp "
+            "at most), "
+            "K8 == K2 (theta, moments), describe(smooth) == K2 descriptors; "
+            "launches detect 2, orientations 1, smooth 1, describe 0")
+        # pin: detect on level 0 == extract_features with a 1-level config;
+        # the single-image pyramid and extract_features on each camera
+        for cam in range(images.shape[0]):
+            img = images[cam]
+            k0 = cfg1.features_per_level()[0]
+            xy, _, th, _ = fast.detect(img, cfg1, k0)
+            f1 = extract_features(img, cfg1)
+            equal_or_raise(xy.float(), f1.xy, "detect xy vs extract_features")
+            equal_or_raise(th, f1.theta, "detect theta vs extract_features")
+            pyr, _ = counted(lambda: pyramid.build_pyramid(img, cfg), {},
+                             "build_pyramid")
+            equal_or_raise(pyr[0], levels[0][cam], "build_pyramid level 0")
+            d1 = (pyr[1] - levels[1][cam]).abs()
+            if float(d1.max()) > 1.0 or int((d1 > 0).sum()) * 10_000 > \
+                    d1.numel():
+                raise AssertionError("build_pyramid level 1 beyond the A2 "
+                                     "rule of the batched pyramid")
+            feats, _ = counted(
+                lambda: extract_features(img, cfg),
+                {"frontend_fused_pyramid": 1, "describe_fused_pyramid": 1},
+                "extract_features")
+            if int((d1 > 0).sum()) == 0:
+                rows = slice(None)
+            else:
+                rows = slice(0, ks[0])
+            for name in ("xy", "score", "theta", "desc", "valid"):
+                equal_or_raise(getattr(feats, name)[rows],
+                               getattr(batched, name)[cam][rows],
+                               f"extract_features {name} vs the batched "
+                               "extraction")
+        log(f"[single image/{kind}] 4 cameras: detect on level 0 == "
+            "extract_features (1 level) xy and theta; build_pyramid 0 "
+            "launches; extract_features 2 launches (K1 + K2), equal to the "
+            "batched extraction")
+
+    # timings on the level-0 float inputs the wrappers received
+    x, thr_in = first["fast_score_map"][0]
+    raw, xy = first["orient_fused"][0]
+    h, w = x.shape[1:]
+    n = h * w
+    stats = {}
+    from repro_torch.kernels.ref import GAUSS7_WEIGHTS_INT
+    wt = torch.tensor(GAUSS7_WEIGHTS_INT, dtype=torch.float32, device=dev)
+    w2 = (wt[:, None] * wt[None, :]
+          / torch.tensor(1296.0, device=dev)).view(1, 1, 7, 7)
+
+    def conv_blur():
+        return F.conv2d(F.pad(x[:, None], (3, 3, 3, 3), mode="replicate"),
+                        w2)[:, 0]
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        lib_err = float((conv_blur() - gb.gaussian_blur7_cuda(
+            x, False)).abs().max())
+        lib_ms = time_ms(conv_blur)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    xc = xy[..., 0].clamp(0, w - 1).reshape(-1)
+    yc = xy[..., 1].clamp(0, h - 1).reshape(-1)
+    n_kp = xy.shape[0] * xy.shape[1]
+    px = footprint((h, w), xc, yc, 31, 31, dev)
+    for name, fn, plain, symbol, nbytes, nops, lib in (
+            ("fast_score_map", lambda: fd.fast_score_map_cuda(x, thr_in),
+             lambda: fast_score_plain(x, thr_in), "fast_kernel",
+             2 * n * 4, n * FAST_OPS_PER_PIXEL, None),
+            ("gaussian_blur7", lambda: gb.gaussian_blur7_cuda(x, True),
+             lambda: blur_plain(x, True), "blur_kernel", 2 * n * 4,
+             n * BLUR_OPS_PER_PIXEL, lib_ms),
+            ("orient_fused", lambda: de.orient_fused_cuda(raw, xy),
+             lambda: de.orient_fused_plain(raw, xy), "orient_kernel",
+             px * 4 + n_kp * (8 + 4 + 8), n_kp * ORIENT_OPS_PER_KP, None)):
+        got, want = fn(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        st = dict(ms=time_ms(fn), device_ms=device_ms(fn, symbol),
+                  plain_ms=time_ms(plain), max_abs_err=err, library_ms=lib)
+        st["bound_ms"], st["bound_by"] = bound_ms(nbytes, nops)
+        stats[name] = st
+        log(f"[{name} 720p] {st['ms']:.4f} ms event, device "
+            f"{st['device_ms']} ms, bound {st['bound_ms']:.6f} ms "
+            f"({st['bound_by']}), plain {st['plain_ms']:.4f} ms, max abs err "
+            f"{err}, library call: "
+            + (f"F.conv2d {lib:.4f} ms (max |diff| {lib_err} from the "
+               "unquantized blur)" if lib is not None else "none"))
+
+    # the paper's module split (Tab. II), one 720p camera image
+    img = torch.from_numpy(frame[0]).to(dev)
+    level0 = pyramid.build_pyramid(img, cfg)[0]
+    rng0, rng1 = np.random.RandomState(0), np.random.RandomState(1)
+    pts = torch.from_numpy(np.stack(
+        [rng0.randint(16, cfg.width - 16, 512),
+         rng1.randint(16, cfg.height - 16, 512)], 1).astype(np.int32)).to(dev)
+    sm = ops.gaussian_blur7(level0)
+    zeros = torch.zeros(512, device=dev)
+    split = {}
+    for name, fn in (
+            ("resize", lambda: pyramid.build_pyramid(img, cfg)),
+            ("fast_detect", lambda: ops.fast_score_map(level0, thr)),
+            ("orientation", lambda: fast.orientations(level0, pts)),
+            ("smoothing", lambda: ops.gaussian_blur7(level0)),
+            ("descriptor", lambda: brief.describe(sm, pts, zeros))):
+        times = []
+        for i in range(REPS + 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append((time.perf_counter() - t0) * 1e3)
+        split[name] = statistics.median(times)
+    tot = sum(split.values())
+    log("[module split 720p] host ms (median of "
+        f"{REPS}, each closed by a synchronize), 512 keypoints: "
+        + ", ".join(f"{k} {v:.4f} ({v / tot:.3f})" for k, v in split.items()))
+    return total, stats, split
+
+
 def localized_phase(cfg, dev):
-    """The localized path at full width (phase 5).  Returns the session
+    """The localized path at full width (phase 6).  Returns the session
     and its frames, the launch counts of the loop, the inputs K4
     received in the loop's last frame and in the run, and the
     timings."""
@@ -595,17 +908,12 @@ def localized_phase(cfg, dev):
                       PipelineConfig(orb=cfg, localize=True), device="cuda")
     frames = torch.from_numpy(seq.frames).to(dev)
 
-    reset_counts()
-    with recorded(match_fused) as k4_loop, ops.launch_audit() as audit:
-        loop = [vs.process_frame(frames[t]) for t in range(SEQ_T)]
-        torch.cuda.synchronize()
-    loop_counts = read_counts()
-    log(f"[localized loop] {SEQ_T} frames: launches {loop_counts}, audit "
-        f"{audit.count}")
-    if (audit.count != 4 * SEQ_T
-            or any(loop_counts[n] != SEQ_T for n in LOC_KERNELS)
-            or loop_counts["sad_fused"] != 0):
-        raise AssertionError("a localized frame must launch K1-K4 once each")
+    with recorded(match_fused) as k4_loop:
+        loop, loop_counts = counted(
+            lambda: [vs.process_frame(frames[t]) for t in range(SEQ_T)],
+            {n: SEQ_T for n in LOC_KERNELS},
+            "a localized frame launches K1-K4 once each")
+    log(f"[localized loop] {SEQ_T} frames: launches {loop_counts}")
     for t, out in enumerate(loop):
         pose = out.pose
         if not (bool(torch.isfinite(pose.rotation).all())
@@ -622,16 +930,12 @@ def localized_phase(cfg, dev):
         f"{[int(o.pose.inliers) for o in loop]}, valid "
         f"{[bool(o.pose.valid) for o in loop]}")
 
-    reset_counts()
-    with recorded(match_fused) as k4_run, ops.launch_audit() as audit:
-        run = vs.run(frames)
-        torch.cuda.synchronize()
-    run_counts = read_counts()
-    log(f"[localized run] T={SEQ_T}: launches {run_counts}, audit "
-        f"{audit.count}")
-    if (audit.count != 3 * SEQ_T + 1 or run_counts["match_fused"] != 1
-            or any(run_counts[n] != SEQ_T for n in ops.FRAME_KERNELS)):
-        raise AssertionError("a localized run must be 3T + 1 launches")
+    with recorded(match_fused) as k4_run:
+        run, run_counts = counted(
+            lambda: vs.run(frames),
+            {**{n: SEQ_T for n in ops.FRAME_KERNELS}, "match_fused": 1},
+            "a localized run is 3T + 1 launches")
+    log(f"[localized run] T={SEQ_T}: launches {run_counts}")
     loop_pose = type(run.pose)(*[torch.stack(x) for x in zip(
         *[o.pose for o in loop])])
     err = close_poses(run.pose, loop_pose, 1e-5, "run vs process_frame loop")
@@ -738,12 +1042,9 @@ def entry_points(card, cpu, source, frame0, frame1, pairs, what: str):
                            lambda vs: vs.match_pair(img_l, img_r, fl, fr)),
         }
         for name, (kernel, call) in calls.items():
-            reset_counts()
-            with recorded(match_fused) as r4, recorded(sad_fused) as r5, \
-                    ops.launch_audit() as audit:
-                got = call(card)
-                torch.cuda.synchronize()
-            counts = read_counts()
+            with recorded(match_fused) as r4, recorded(sad_fused) as r5:
+                got, counts = counted(lambda: call(card), {kernel: 1},
+                                      f"{name}: one launch")
             for n, c in counts.items():
                 total[n] += c
             if name == "stereo_match":
@@ -758,15 +1059,15 @@ def entry_points(card, cpu, source, frame0, frame1, pairs, what: str):
                       for x in t]
             same = all(torch.equal(a.cpu(), b) for a, b in zip(flat_g, flat_c))
             log(f"[entry points/{what}] {name} pair ({cl}, {cr}): "
-                f"{audit.count} launch ({kernel} {counts[kernel]}), equal to "
+                f"1 launch ({kernel} {counts[kernel]}), equal to "
                 f"the CPU session: {same}")
-            if audit.count != 1 or counts[kernel] != 1 or not same:
-                raise AssertionError(f"{name}: one launch, equal to the CPU")
+            if not same:
+                raise AssertionError(f"{name}: not equal to the CPU session")
     return total, k4, k5
 
 
 def small_sequence_phase():
-    """The card's localized session against the CPU session (phase 7)."""
+    """The card's localized session against the CPU session (phase 8)."""
     from repro_torch.core import (ORBConfig, PipelineConfig, RigConfig,
                                   VisualSystem)
     from repro_torch.data import scenes
@@ -856,14 +1157,10 @@ def main() -> int:
     # 4. the main path through the session entry point
     vs = VisualSystem(RigConfig.quad(intr), PipelineConfig(), device="cuda")
     images = torch.from_numpy(frame).to(dev)
-    reset_counts()
-    with ops.launch_audit() as audit:
-        out = vs.process_frame(images)
-        torch.cuda.synchronize()
-    launches = read_counts()
-    log(f"[main path] launches {launches}, audit {audit.count}")
-    if audit.count != 3 or any(launches[n] != 1 for n in ops.FRAME_KERNELS):
-        raise AssertionError("process_frame must launch each kernel once")
+    out, launches = counted(lambda: vs.process_frame(images),
+                            {n: 1 for n in ops.FRAME_KERNELS},
+                            "process_frame launches each kernel once")
+    log(f"[main path] launches {launches}")
     k_feat = cfg.max_features
     for f in (out.features_l, out.features_r):
         if tuple(f.xy.shape) != (2, k_feat, 2) or tuple(f.desc.shape) != (
@@ -938,14 +1235,18 @@ def main() -> int:
         f"{int(desc_diff.sum())} descriptors differ at a bin edge"
         f"{'' if not desc_diff.any() else '; matches not compared'})")
 
-    # 5. the localized path at full width, and K4 on the inputs it
+    # 5. the single-image FE API at full width
+    single_counts, single_stats, module_split = single_image_phase(
+        frame, cfg, dev)
+
+    # 6. the localized path at full width, and K4 on the inputs it
     #    received there
     vs_loc, seq_frames, loop_counts, k4_frame, k4_run, loc = (
         localized_phase(cfg, dev))
     mo_frame = check_match_only(*k4_frame, "temporal, localized frame 720p")
     mo_run = check_match_only(*k4_run, f"temporal, run 720p T={SEQ_T}")
 
-    # 6. the matcher entry points at full width, and K4 and K5 on the
+    # 7. the matcher entry points at full width, and K4 and K5 on the
     #    inputs they received there
     cpu_loc = VisualSystem(vs_loc.rig, vs_loc.pipe, device="cpu")
     entry_counts, k4_stereo, k5_calls = entry_points(
@@ -954,10 +1255,10 @@ def main() -> int:
     mo_stereo = check_match_only(*stacked(k4_stereo), "stereo_match 720p")
     sad_stats = check_sad_only(*stacked(k5_calls), "sad_rectify 720p")
 
-    # 7. the card's session against the CPU session, small sequence
+    # 8. the card's session against the CPU session, small sequence
     small_sequence_phase()
 
-    # 8. result lines
+    # 9. result lines
     kernels = []
     meta = {
         "frontend_fused_pyramid": (
@@ -1004,7 +1305,25 @@ def main() -> int:
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
             "bound_by": st["bound_by"], "library_ms": None,
             "profiled_device_ms": st["device_ms"], **extra})
+    for name, source, replaces in (
+            ("fast_score_map", "src/repro_torch/kernels/csrc/fast_detect.cu",
+             "src/repro/kernels/fast_detect.py:56"),
+            ("gaussian_blur7", "src/repro_torch/kernels/csrc/gaussian_blur.cu",
+             "src/repro/kernels/gaussian_blur.py:50"),
+            ("orient_fused", "src/repro_torch/kernels/csrc/orient_fused.cu",
+             "src/repro/kernels/describe_fused.py:218")):
+        st = single_stats[name]
+        if single_counts[name] < 1:
+            raise AssertionError(f"{name} was not launched on its path")
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": single_counts[name],
+            "max_abs_err": st["max_abs_err"], "ms": st["ms"],
+            "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+            "bound_by": st["bound_by"], "library_ms": st["library_ms"],
+            "profiled_device_ms": st["device_ms"]})
     print(json.dumps({"kernels": kernels,
+                      "module_split_ms": module_split,
                       "frame_ms_median": statistics.median(frame_ms),
                       "localized_frame_ms_median": loc["frame_ms"],
                       "localized_stage_ms": loc["stages"],

@@ -101,3 +101,17 @@ def match_pair_fused(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
     best = sad.float() - float(cfg.sad_range)
     depth = _depth_set(feat_l.xy[..., 0], rxy, best, matches, cfg, intr)
     return matches, depth
+
+
+def _unfused(name: str, kernels: str):
+    def entry(*args, **kwargs):
+        raise NotImplementedError(
+            f"{name}, the unfused oracle schedule ({kernels}), is not ported "
+            "yet (ROADMAP A8)")
+    entry.__name__ = name
+    return entry
+
+
+match_pair_unfused = _unfused("match_pair_unfused", "K9, K10")
+stereo_match_unfused = _unfused("stereo_match_unfused", "K9")
+sad_rectify_unfused = _unfused("sad_rectify_unfused", "K10")

@@ -10,7 +10,8 @@ per FRAME for every camera at every pyramid level.
 
 Then the levels merge into one static-shape FeatureSet with level-0
 coordinates.  ``features_from_levels`` is steps 1-3 on given pyramid
-levels, so a caller (or a test) can feed its own pyramid.
+levels, so a caller (or a test) can feed its own pyramid;
+``extract_features`` is the single-image view of the same 2 launches.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import fast, pyramid
-from repro_torch.core.types import FeatureSet, ORBConfig
+from repro_torch.core.types import FeatureSet, ORBConfig, map_fields
 from repro_torch.kernels import ops
 
 
@@ -64,3 +65,18 @@ def extract_features_batched(images: torch.Tensor,
     of K features per camera, in exactly 2 kernel launches."""
     return features_from_levels(
         pyramid.build_pyramid_batched(images, cfg), cfg)
+
+
+def extract_features(image: torch.Tensor, cfg: ORBConfig, *,
+                     precision: str = "f32") -> FeatureSet:
+    """image: (H, W) float in [0, 255] -> FeatureSet of K features, the
+    batch-of-one view of ``extract_features_batched`` (2 launches)."""
+    pyramid.check_precision(precision)
+    return map_fields(lambda x: x[0], extract_features_batched(image[None],
+                                                               cfg))
+
+
+def extract_features_per_level(*args, **kwargs):
+    raise NotImplementedError(
+        "extract_features_per_level, the per-level schedule (K6, K7), is "
+        "not ported yet (ROADMAP A8, K6, K7)")

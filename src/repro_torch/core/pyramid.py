@@ -67,6 +67,26 @@ def bilinear_resize(images: torch.Tensor, out_hw: tuple[int, int]):
     return torch.matmul(torch.matmul(wy.t(), images), wx)
 
 
+def build_pyramid(image: torch.Tensor, cfg: ORBConfig, *,
+                  precision: str = "f32") -> list[torch.Tensor]:
+    """(H, W) image -> ``cfg.n_levels`` (h_l, w_l) float32 level images,
+    level 0 the input: the batch-of-one view of
+    ``build_pyramid_batched``."""
+    check_precision(precision)
+    return [lv[0] for lv in build_pyramid_batched(image[None], cfg)]
+
+
+def check_precision(precision: str) -> None:
+    """Accept ``"f32"``; ``"uint8"`` (the 8-bit datapath) is not ported
+    yet, and any other string is an error."""
+    if precision == "uint8":
+        raise NotImplementedError(
+            "precision='uint8' is not ported yet (ROADMAP A6)")
+    if precision != "f32":
+        raise ValueError(
+            f"precision must be 'f32' or 'uint8', got {precision!r}")
+
+
 def level_shapes(cfg: ORBConfig) -> list[tuple[int, int]]:
     """Static (h, w) of every pyramid level."""
     return [cfg.level_shape(lvl) for lvl in range(cfg.n_levels)]

@@ -1,0 +1,68 @@
+// Device code shared by the sparse FE kernels: the fused sparse FE (K2,
+// describe_fused.cu) and orientation-only (K8, orient_fused.cu).  Both
+// load a keypoint's raw patch and derive its moments and theta with the
+// functions below, so K8's theta and moments are bit-equal to K2's on
+// the same keypoints.  Each keypoint is one warp's work.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace describe {
+
+constexpr int PATCH = 31;
+constexpr int RADIUS = 15;
+constexpr int NPIX = PATCH * PATCH;
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// The 31x31 window of an (h, w) raw image and, with ``kSmoothed``, the
+// same window of its smoothed image, around the (already clamped)
+// center (x, y), every read clamped into the image (the reference's
+// edge pad), into ``dst_raw`` / ``dst_sm`` row by row; the warp's 32
+// lanes share them.  K2 loads both windows in one loop, K8 the raw one.
+template <bool kSmoothed>
+__device__ __forceinline__ void load_patches(const float* __restrict__ raw,
+                                             const float* __restrict__ sm,
+                                             int h, int w, int x, int y,
+                                             int lane, float* dst_raw,
+                                             float* dst_sm) {
+  for (int i = lane; i < NPIX; i += 32) {
+    const int gy = clampi(y - RADIUS + i / PATCH, 0, h - 1);
+    const int gx = clampi(x - RADIUS + i % PATCH, 0, w - 1);
+    const long long g = static_cast<long long>(gy) * w + gx;
+    dst_raw[i] = raw[g];
+    if constexpr (kSmoothed) dst_sm[i] = sm[g];
+  }
+}
+
+// Circular-mask intensity-centroid moments (m10, m01) of a patch in
+// shared memory (paper Eq. 1): each lane sums its pixels, the warp
+// reduces with shuffles to lane 0, which broadcasts, so every lane
+// returns the same moments and theta = atan2(m01, m10).
+__device__ __forceinline__ float patch_theta(const float* patch, int lane,
+                                             float* m10_out,
+                                             float* m01_out) {
+  float m10 = 0.f, m01 = 0.f;
+  for (int i = lane; i < NPIX; i += 32) {
+    const int dy = i / PATCH - RADIUS, dx = i % PATCH - RADIUS;
+    if (dx * dx + dy * dy <= RADIUS * RADIUS) {
+      m10 = __fadd_rn(m10, __fmul_rn(patch[i], static_cast<float>(dx)));
+      m01 = __fadd_rn(m01, __fmul_rn(patch[i], static_cast<float>(dy)));
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    m10 = __fadd_rn(m10, __shfl_down_sync(FULL, m10, o));
+    m01 = __fadd_rn(m01, __shfl_down_sync(FULL, m01, o));
+  }
+  m10 = __shfl_sync(FULL, m10, 0);
+  m01 = __shfl_sync(FULL, m01, 0);
+  *m10_out = m10;
+  *m01_out = m01;
+  return atan2f(m01, m10);
+}
+
+}  // namespace describe

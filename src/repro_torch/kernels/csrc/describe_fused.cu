@@ -21,20 +21,15 @@
 // lane 0, which broadcasts them, so every lane derives the same theta
 // and bin.  Each tau bit is an exact shared-memory compare: the TPU's
 // +-1 selection matmul is gone, and __ballot_sync packs 32 lanes' bits
-// into one word in the reference's bit order.
-#include <cuda_runtime.h>
+// into one word in the reference's bit order.  The patch load, moments
+// and theta are describe_common.cuh's, shared with K8 (orient_fused.cu).
+#include "describe_common.cuh"
 
 namespace {
 
-constexpr int PATCH = 31;
-constexpr int RADIUS = 15;
-constexpr int NPIX = PATCH * PATCH;
+using describe::FULL;
+using describe::NPIX;
 constexpr int WARPS = 4;
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
 
 __global__ void __launch_bounds__(WARPS * 32)
 describe_kernel(const int* __restrict__ lut, const float* __restrict__ raw,
@@ -56,36 +51,16 @@ describe_kernel(const int* __restrict__ lut, const float* __restrict__ raw,
   const long long off = table[3 * s];
   const int h = static_cast<int>(table[3 * s + 1]);
   const int w = static_cast<int>(table[3 * s + 2]);
-  const int x = clampi(xy[2 * kp], 0, w - 1);
-  const int y = clampi(xy[2 * kp + 1], 0, h - 1);
+  const int x = describe::clampi(xy[2 * kp], 0, w - 1);
+  const int y = describe::clampi(xy[2 * kp + 1], 0, h - 1);
 
   float* pr = s_raw[warp];
   float* ps = s_sm[warp];
-  for (int i = lane; i < NPIX; i += 32) {
-    const int gy = clampi(y - RADIUS + i / PATCH, 0, h - 1);
-    const int gx = clampi(x - RADIUS + i % PATCH, 0, w - 1);
-    const long long g = off + static_cast<long long>(gy) * w + gx;
-    pr[i] = raw[g];
-    ps[i] = sm[g];
-  }
+  describe::load_patches<true>(raw + off, sm + off, h, w, x, y, lane, pr, ps);
   __syncwarp();
 
-  float m10 = 0.f, m01 = 0.f;
-  for (int i = lane; i < NPIX; i += 32) {
-    const int dy = i / PATCH - RADIUS, dx = i % PATCH - RADIUS;
-    if (dx * dx + dy * dy <= RADIUS * RADIUS) {
-      m10 = __fadd_rn(m10, __fmul_rn(pr[i], static_cast<float>(dx)));
-      m01 = __fadd_rn(m01, __fmul_rn(pr[i], static_cast<float>(dy)));
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    m10 = __fadd_rn(m10, __shfl_down_sync(FULL, m10, o));
-    m01 = __fadd_rn(m01, __shfl_down_sync(FULL, m01, o));
-  }
-  m10 = __shfl_sync(FULL, m10, 0);
-  m01 = __shfl_sync(FULL, m01, 0);
-  const float th = atan2f(m01, m10);
+  float m10, m01;
+  const float th = describe::patch_theta(pr, lane, &m10, &m01);
   int bin = static_cast<int>(rintf(__fmul_rn(th, inv_step))) % 12;
   if (bin < 0) bin += 12;
 

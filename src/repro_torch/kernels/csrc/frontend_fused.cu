@@ -23,38 +23,22 @@
 // FAST score is computed on the (tile+2)^2 rim so NMS needs no second
 // pass.  The TPU workarounds (tile-aligned canvas, Unblocked halos, SMEM
 // shape table) are gone: a 3-int table row per slab gives its offset
-// and true shape.
-#include <cuda_runtime.h>
+// and true shape.  The tile load, blur and FAST score are the shared
+// device functions of frontend_common.cuh (also K11's and K12's).
+#include "frontend_common.cuh"
 
 namespace {
 
-constexpr int TW = 32;            // output tile width
-constexpr int TH = 32;            // output tile height
-constexpr int HALO = 4;           // 3 (blur / FAST circle) + 1 (NMS)
+using frontend::blur7;
+using frontend::blur_norm;
+using frontend::fast_score;
+
+constexpr int TW = frontend::TILE;    // output tile width
+constexpr int TH = frontend::TILE;    // output tile height
+constexpr int HALO = frontend::RAD + 1;  // blur / FAST circle + NMS
 constexpr int IW = TW + 2 * HALO;
 constexpr int IH = TH + 2 * HALO;
 constexpr int NT = 256;
-
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
-
-// Bresenham circle of radius 3, (dx, dy), in order around the circle.
-__constant__ int kCircle[16][2] = {
-    {0, -3}, {1, -3}, {2, -2}, {3, -1}, {3, 0},  {3, 1},  {2, 2},  {1, 3},
-    {0, 3},  {-1, 3}, {-2, 2}, {-3, 1}, {-3, 0}, {-3, -1}, {-2, -2}, {-1, -3}};
-
-// 7 taps of the binomial blur in order, then a separately rounded add.
-__device__ __forceinline__ float blur7(const float* p, int stride) {
-  float acc = __fmul_rn(1.f, p[0]);
-  acc = __fadd_rn(acc, __fmul_rn(4.f, p[stride]));
-  acc = __fadd_rn(acc, __fmul_rn(8.f, p[2 * stride]));
-  acc = __fadd_rn(acc, __fmul_rn(10.f, p[3 * stride]));
-  acc = __fadd_rn(acc, __fmul_rn(8.f, p[4 * stride]));
-  acc = __fadd_rn(acc, __fmul_rn(4.f, p[5 * stride]));
-  acc = __fadd_rn(acc, __fmul_rn(1.f, p[6 * stride]));
-  return acc;
-}
 
 __global__ void __launch_bounds__(NT)
 frontend_kernel(const float* __restrict__ in, float* __restrict__ blur,
@@ -71,14 +55,8 @@ frontend_kernel(const float* __restrict__ in, float* __restrict__ blur,
   __shared__ float s_in[IH][IW];
   __shared__ float s_h[TH + 6][TW];
   __shared__ float s_sc[TH + 2][TW + 2];
-  const float* img = in + off;
-
-  for (int i = threadIdx.x; i < IH * IW; i += NT) {
-    const int r = i / IW, c = i % IW;
-    const int gy = clampi(ty0 - HALO + r, 0, h - 1);
-    const int gx = clampi(tx0 - HALO + c, 0, w - 1);
-    s_in[r][c] = img[static_cast<long long>(gy) * w + gx];
-  }
+  frontend::load_tile(in + off, h, w, ty0 - HALO, tx0 - HALO, IH, IW,
+                      &s_in[0][0], NT);
   __syncthreads();
 
   // Horizontal pass over the TH + 6 rows the vertical pass needs.
@@ -92,30 +70,9 @@ frontend_kernel(const float* __restrict__ in, float* __restrict__ blur,
   for (int i = threadIdx.x; i < (TH + 2) * (TW + 2); i += NT) {
     const int r = i / (TW + 2), c = i % (TW + 2);
     const int gy = ty0 - 1 + r, gx = tx0 - 1 + c;
-    float v = -1.f;
-    if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
-      const float ctr = s_in[r + 3][c + 3];
-      float d[16];
-#pragma unroll
-      for (int k = 0; k < 16; ++k)
-        d[k] = __fsub_rn(s_in[r + 3 + kCircle[k][1]][c + 3 + kCircle[k][0]],
-                         ctr);
-      float bright = d[0], dark = d[0];
-#pragma unroll
-      for (int st = 0; st < 16; ++st) {
-        float mn = d[st], mx = d[st];
-#pragma unroll
-        for (int j = 1; j < 9; ++j) {
-          mn = fminf(mn, d[(st + j) & 15]);
-          mx = fmaxf(mx, d[(st + j) & 15]);
-        }
-        bright = st == 0 ? mn : fmaxf(bright, mn);
-        dark = st == 0 ? mx : fminf(dark, mx);
-      }
-      const float sc = fmaxf(bright, -dark);
-      v = sc > threshold ? sc : 0.f;
-    }
-    s_sc[r][c] = v;
+    s_sc[r][c] = (gy >= 0 && gy < h && gx >= 0 && gx < w)
+                     ? fast_score(&s_in[r + 3][c + 3], IW, threshold)
+                     : -1.f;
   }
   __syncthreads();
 
@@ -124,9 +81,7 @@ frontend_kernel(const float* __restrict__ in, float* __restrict__ blur,
     const int r = i / TW, c = i % TW;
     const int gy = ty0 + r, gx = tx0 + c;
     if (gy >= h || gx >= w) continue;
-    const float vert = blur7(&s_h[r][c], TW);
-    const float b = quantized ? floorf(__fdiv_rn(__fadd_rn(vert, 648.f), 1296.f))
-                              : __fdiv_rn(vert, 1296.f);
+    const float b = blur_norm(blur7(&s_h[r][c], TW), quantized);
     const float cs = s_sc[r + 1][c + 1];
     float out;
     if (nms) {

@@ -1,0 +1,69 @@
+// Orientation only: moments and theta of every keypoint of a batch of
+// images in one launch.
+//
+// Replaces the TPU kernel repro/kernels/describe_fused.py::
+// orient_fused_pallas (pl.pallas_call at line 229, body _orient_kernel
+// with _load_patches and _block_theta): per keypoint, clamped into its
+// image, the 31x31 raw patch, the circular-mask moments (m10, m01) and
+// theta = atan2(m01, m10) (paper Eq. 1); no smoothed image and no
+// descriptor.  It serves fast.orientations and fast.detect.
+//
+// Bound on an H100 SXM at fast.detect's level-0 shape (591 keypoints of
+// one 720 x 1280 image): each covered image pixel read once (at most
+// 0.57 M if no two patches overlapped, 2.3 MB) plus the keypoints and
+// the outputs, under 0.7 us at 3.35 TB/s; about 2,860 float operations
+// a keypoint (709 masked pixels x 2 multiplies and 2 adds, atan2), 1.7 M,
+// 0.03 us at 67 TFLOP/s.  The kernel is bound by bytes, and at this size
+// by its launch.
+//
+// Design: K2's, without its second half: one warp per keypoint, four
+// keypoints per 128-thread block, any K (the TPU's padding of K to an
+// 8-keypoint block is gone), each warp loading its patch into shared
+// memory with clamped reads (the reference's edge pad: no padded slab).
+// The patch load, moments and theta are describe_common.cuh's, the same
+// device code K2 runs, so theta and moments are bit-equal to K2's.
+#include "describe_common.cuh"
+
+namespace {
+
+using describe::NPIX;
+constexpr int WARPS = 4;
+
+__global__ void __launch_bounds__(WARPS * 32)
+orient_kernel(const float* __restrict__ raw, const int* __restrict__ xy,
+              float* __restrict__ theta, float* __restrict__ mom, int B,
+              int K, int h, int w) {
+  __shared__ float s_raw[WARPS][NPIX];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long kp = static_cast<long long>(blockIdx.x) * WARPS + warp;
+  if (kp >= static_cast<long long>(B) * K) return;   // whole warp leaves
+
+  const long long img = (kp / K) * h * w;
+  const int x = describe::clampi(xy[2 * kp], 0, w - 1);
+  const int y = describe::clampi(xy[2 * kp + 1], 0, h - 1);
+  float* pr = s_raw[warp];
+  describe::load_patches<false>(raw + img, nullptr, h, w, x, y, lane, pr,
+                                nullptr);
+  __syncwarp();
+
+  float m10, m01;
+  const float th = describe::patch_theta(pr, lane, &m10, &m01);
+  if (lane == 0) {
+    theta[kp] = th;
+    mom[2 * kp] = m10;
+    mom[2 * kp + 1] = m01;
+  }
+}
+
+}  // namespace
+
+extern "C" int orient_fused(const float* raw, const int* xy, float* theta,
+                            float* mom, int B, int K, int h, int w,
+                            cudaStream_t stream) {
+  const long long n = static_cast<long long>(B) * K;
+  const dim3 grid(static_cast<unsigned>((n + WARPS - 1) / WARPS));
+  orient_kernel<<<grid, WARPS * 32, 0, stream>>>(raw, xy, theta, mom, B, K,
+                                                 h, w);
+  return static_cast<int>(cudaGetLastError());
+}

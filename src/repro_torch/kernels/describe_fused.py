@@ -15,28 +15,27 @@ Ktot; ``col_level`` (Ktot,) gives each column's level, so keypoint
 (b, j) reads slab ``col_level[j] * B + b``.  The CUDA kernel is
 ``csrc/describe_fused.cu``; the plain version below is the same
 function in PyTorch, and the wrapper picks it only for a CPU tensor.
+
+``orient_fused`` is the orientation-only kernel (port of
+``orient_fused_pallas``, K8; ``csrc/orient_fused.cu``): the same
+moments and theta for (B, K) keypoints of B images of one shape, with
+no smoothed image and no descriptor.  Its plain version is the first
+half of the sparse FE's.
 """
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
-from repro_torch.kernels import _build, pattern
-from repro_torch.kernels.frontend_fused import SlabTable
+from repro_torch.kernels import _build
+from repro_torch.kernels.frontend_fused import SlabTable, slab_table
 from repro_torch.kernels.ref import (INV_ANGLE_STEP, PATCH, RADIUS,
-                                     clamped_index, pack_bits, patch_theta,
-                                     theta_to_bin)
+                                     clamped_index, lut_descriptor,
+                                     patch_theta, steer_lut, theta_to_bin)
 
 KERNEL = _build.CudaKernel("describe_fused", "describe_fused_pyramid",
                            "pppppppppiif")
-
-
-@functools.lru_cache(maxsize=8)
-def steer_lut(device: str) -> torch.Tensor:
-    """The (12, 256, 2) int32 steering ROM on ``device``."""
-    return torch.from_numpy(pattern.STEER_LUT.copy()).to(device)
+ORIENT_KERNEL = _build.CudaKernel("orient_fused", "orient_fused", "ppppiiii")
 
 
 def _slab_patches(flat: torch.Tensor, slab: torch.Tensor, table, xy):
@@ -60,13 +59,9 @@ def describe_fused_pyramid_plain(raw: torch.Tensor, smoothed: torch.Tensor,
     b = xy.shape[0]
     slab = (col_level.long()[None, :] * b
             + torch.arange(b, device=xy.device)[:, None])
-    raw_p = _slab_patches(raw, slab, slabs.table, xy)
-    theta, mom = patch_theta(raw_p)
-    lut = steer_lut(str(raw.device))[theta_to_bin(theta)].long()
-    sm = _slab_patches(smoothed, slab, slabs.table, xy).flatten(-2)
-    pa = torch.gather(sm, -1, lut[..., 0])
-    pb = torch.gather(sm, -1, lut[..., 1])
-    return theta, mom, pack_bits(pa < pb)
+    theta, mom = patch_theta(_slab_patches(raw, slab, slabs.table, xy))
+    sm = _slab_patches(smoothed, slab, slabs.table, xy)
+    return theta, mom, lut_descriptor(sm, theta_to_bin(theta))
 
 
 def describe_fused_pyramid_cuda(raw: torch.Tensor, smoothed: torch.Tensor,
@@ -99,3 +94,39 @@ def describe_fused_pyramid(raw: torch.Tensor, smoothed: torch.Tensor,
     fn = (describe_fused_pyramid_plain if raw.device.type == "cpu"
           else describe_fused_pyramid_cuda)
     return fn(raw, smoothed, slabs, xy, col_level)
+
+
+def orient_fused_plain(raw: torch.Tensor, xy: torch.Tensor):
+    """Plain PyTorch version of the orientation-only kernel.  Returns
+    (theta (B, K) f32, moments (B, K, 2) f32)."""
+    b, h, w = raw.shape
+    slabs = slab_table([(h, w)], b, raw.device)
+    slab = torch.arange(b, device=xy.device)[:, None].expand(b, xy.shape[1])
+    return patch_theta(_slab_patches(raw.reshape(-1), slab, slabs.table, xy))
+
+
+def orient_fused_cuda(raw: torch.Tensor, xy: torch.Tensor):
+    """Launch ``csrc/orient_fused.cu`` once over every keypoint."""
+    dev = _build.require_cuda(raw, xy)
+    if raw.dtype != torch.float32 or xy.dtype != torch.int32:
+        raise ValueError("orientation takes float32 images and int32 "
+                         "keypoints")
+    b, h, w = raw.shape
+    k = xy.shape[1]
+    if xy.shape != (b, k, 2):
+        raise ValueError(f"keypoints must be (B, K, 2), got {tuple(xy.shape)}")
+    theta = torch.empty((b, k), dtype=torch.float32, device=dev)
+    mom = torch.empty((b, k, 2), dtype=torch.float32, device=dev)
+    if b * k:
+        ORIENT_KERNEL(dev, raw.data_ptr(), xy.data_ptr(), theta.data_ptr(),
+                      mom.data_ptr(), b, k, h, w)
+    return theta, mom
+
+
+def orient_fused(raw: torch.Tensor, xy: torch.Tensor):
+    """raw: (B, H, W) float32 images; xy: (B, K, 2) int32 keypoints,
+    clamped into the image.  Returns (theta (B, K), moments (B, K, 2)).
+    A CPU tensor runs the plain version; a CUDA tensor launches the
+    kernel."""
+    fn = orient_fused_plain if raw.device.type == "cpu" else orient_fused_cuda
+    return fn(raw, xy)

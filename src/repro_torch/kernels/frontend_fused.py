@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (ARC_LEN, CIRCLE16, GAUSS7_NORM,
-                                     GAUSS7_WEIGHTS_INT, true_div)
+                                     GAUSS7_WEIGHTS_INT, nms3, true_div)
 
 KERNEL = _build.CudaKernel("frontend_fused", "frontend_fused_pyramid",
                            "ppppiiifii")
@@ -97,18 +97,6 @@ def fast_score_plain(x: torch.Tensor, threshold: float) -> torch.Tensor:
     return torch.where(score > threshold, score, torch.zeros_like(score))
 
 
-def nms_plain(score: torch.Tensor) -> torch.Tensor:
-    """3x3 non-max suppression with -1 outside the image: keep a
-    positive score that is >= all 8 neighbours."""
-    spad = F.pad(score[:, None], (1, 1, 1, 1), value=-1.0)[:, 0]
-    rmax = torch.maximum(torch.maximum(spad[:, :-2], spad[:, 1:-1]),
-                         spad[:, 2:])
-    nmax = torch.maximum(torch.maximum(rmax[:, :, :-2], rmax[:, :, 1:-1]),
-                         rmax[:, :, 2:])
-    return (torch.where(score >= nmax, score, torch.zeros_like(score))
-            * (score > 0).to(score.dtype))
-
-
 def frontend_fused_pyramid_plain(flat: torch.Tensor, slabs: SlabTable, *,
                                  threshold: float, nms: bool = True,
                                  quantized: bool = True):
@@ -126,7 +114,7 @@ def frontend_fused_pyramid_plain(flat: torch.Tensor, slabs: SlabTable, *,
         x = flat[off:off + n].view(j - i, h, w)
         blur[off:off + n] = blur_plain(x, quantized).reshape(-1)
         sc = fast_score_plain(x, float(threshold))
-        sc = nms_plain(sc) if nms else sc
+        sc = nms3(sc) if nms else sc
         score[off:off + n] = sc.reshape(-1)
         i = j
     return blur, score

@@ -21,7 +21,9 @@ import functools
 import torch
 
 from repro_torch.kernels import describe_fused as _describe
+from repro_torch.kernels import fast_detect as _fast
 from repro_torch.kernels import frontend_fused as _frontend
+from repro_torch.kernels import gaussian_blur as _blur
 from repro_torch.kernels import match_fused as _match_only
 from repro_torch.kernels import matcher_fused as _matcher
 from repro_torch.kernels import sad_fused as _sad_only
@@ -29,14 +31,19 @@ from repro_torch.kernels._build import launch_audit  # noqa: F401
 
 #: Every hand-written kernel of the port, by name: the frame's three
 #: (dense FE, sparse FE, fused matcher), then the match-only matcher
-#: (``stereo_match``, ``temporal_match``, localization) and the SAD-only
-#: matcher (``sad_rectify``).
+#: (``stereo_match``, ``temporal_match``, localization), the SAD-only
+#: matcher (``sad_rectify``), and the single-image FE modules' three:
+#: the FAST score map (``fast.detect``), the 7x7 blur (``brief.smooth``)
+#: and orientation only (``fast.orientations``, ``fast.detect``).
 KERNELS = {
     "frontend_fused_pyramid": _frontend.KERNEL,
     "describe_fused_pyramid": _describe.KERNEL,
     "match_rectify_fused": _matcher.KERNEL,
     "match_fused": _match_only.KERNEL,
     "sad_fused": _sad_only.KERNEL,
+    "fast_score_map": _fast.KERNEL,
+    "gaussian_blur7": _blur.KERNEL,
+    "orient_fused": _describe.ORIENT_KERNEL,
 }
 #: The kernels of one frame, each launched once by ``process_frame``.
 FRAME_KERNELS = ("frontend_fused_pyramid", "describe_fused_pyramid",
@@ -84,6 +91,44 @@ def fast_blur_nms_pyramid(levels, threshold: float, *, nms: bool = True,
         flat, _slabs_of(levels), threshold=float(threshold), nms=bool(nms),
         quantized=bool(quantized))
     return list(zip(_split(blur, levels), _split(score, levels)))
+
+
+def _image_batch(img: torch.Tensor) -> torch.Tensor:
+    """(H, W) image -> contiguous (1, H, W) float32, a non-float image
+    cast first (the JAX package's ``_pad_tiles`` cast)."""
+    return img.to(torch.float32).contiguous()[None]
+
+
+def fast_score_map(img: torch.Tensor, threshold: float) -> torch.Tensor:
+    """(H, W) image -> (H, W) float32 FAST-9/16 corner score map, ONE
+    launch."""
+    return _fast.fast_score_map(_image_batch(img), float(threshold))[0]
+
+
+def gaussian_blur7(img: torch.Tensor, quantized: bool = True) -> torch.Tensor:
+    """(H, W) image -> (H, W) float32 7x7-Gaussian-smoothed image, ONE
+    launch."""
+    return _blur.gaussian_blur7(_image_batch(img), bool(quantized))[0]
+
+
+def orient_describe_batched(raw: torch.Tensor, smoothed, xy: torch.Tensor):
+    """Batched sparse stage for a (B, K) block of keypoints of B images
+    of one shape.  Only its orientation-only form is ported
+    (``smoothed=None``, ``fast.detect``'s path): (B, H, W) float raw
+    images and (B, K, 2) int keypoints (clamped into the image) ->
+    (theta (B, K) float32, moments (B, K, 2) float32, None), ONE
+    launch."""
+    if smoothed is not None:
+        raise NotImplementedError(
+            "orient_describe_batched with a smoothed image is the per-level "
+            "sparse FE (K7), not ported yet (ROADMAP K7, A8)")
+    if not raw.dtype.is_floating_point:
+        raise NotImplementedError(
+            "integer images take the integer variant of orientation (K8's "
+            "uint8 path), not ported yet (ROADMAP A6)")
+    theta, mom = _describe.orient_fused(raw.to(torch.float32).contiguous(),
+                                        xy.to(torch.int32).contiguous())
+    return theta, mom, None
 
 
 @functools.lru_cache(maxsize=32)

@@ -17,8 +17,11 @@ package's jnp oracles:
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import pattern
 
@@ -51,6 +54,22 @@ def int_threshold(threshold: float) -> int:
 def true_div(x: torch.Tensor, value: float) -> torch.Tensor:
     """IEEE float32 ``x / value`` on every device (see module note)."""
     return x / torch.tensor(value, dtype=x.dtype, device=x.device)
+
+
+def nms3(score: torch.Tensor) -> torch.Tensor:
+    """3x3 non-max suppression of (..., H, W) score maps, -1 outside the
+    image: keep a positive score that is >= all 8 neighbours (the JAX
+    package's ``ref.nms3``, and the NMS of the dense FE kernel)."""
+    shape = score.shape
+    s = score.reshape(-1, *shape[-2:])
+    spad = F.pad(s[:, None], (1, 1, 1, 1), value=-1.0)[:, 0]
+    rmax = torch.maximum(torch.maximum(spad[:, :-2], spad[:, 1:-1]),
+                         spad[:, 2:])
+    nmax = torch.maximum(torch.maximum(rmax[:, :, :-2], rmax[:, :, 1:-1]),
+                         rmax[:, :, 2:])
+    out = (torch.where(s >= nmax, s, torch.zeros_like(s))
+           * (s > 0).to(s.dtype))
+    return out.reshape(shape)
 
 
 def clamped_index(start: torch.Tensor, size: int, limit) -> torch.Tensor:
@@ -95,6 +114,24 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     shifts = torch.arange(32, device=bits.device)
     words = (w << shifts).sum(dim=-1)                     # < 2**32, exact
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=8)
+def steer_lut(device: str) -> torch.Tensor:
+    """The (12, 256, 2) int32 steering ROM on ``device``."""
+    return torch.from_numpy(pattern.STEER_LUT.copy()).to(device)
+
+
+def lut_descriptor(sm_patches: torch.Tensor,
+                   bins: torch.Tensor) -> torch.Tensor:
+    """(..., 31, 31) smoothed patches + (...,) steering bins -> (..., 8)
+    int32 rBRIEF bit-views: tau = p(A) < p(B) over the bin's
+    ``STEER_LUT`` row (paper Eq. 2; ``repro.kernels.ref.lut_descriptor``)."""
+    lut = steer_lut(str(sm_patches.device))[bins.long()].long()
+    flat = sm_patches.flatten(-2)
+    pa = torch.gather(flat, -1, lut[..., 0])
+    pb = torch.gather(flat, -1, lut[..., 1])
+    return pack_bits(pa < pb)
 
 
 def extract_patches(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:

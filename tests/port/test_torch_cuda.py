@@ -7,10 +7,12 @@ has no interpret mode).  Run them on a card with
 (the other files of ``tests/port`` import jax, which a card host may
 not have)
 
-Tolerances as in ``parity.py``: dense FE and the three matchers
-(fused, match-only, SAD-only) bit-equal; the sparse FE under the
-sparse-FE rule (integer-valued inputs here, so moments equal and theta
-within 1 ulp); a localized frame's pose within the CPU tests' pose
+Tolerances as in ``parity.py``: dense FE, the FAST score map, the 7x7
+blur and the three matchers (fused, match-only, SAD-only) bit-equal;
+the sparse FE and orientation only under the sparse-FE rule
+(integer-valued inputs here, so moments equal and theta within 1 ulp);
+orientation only bit-equal to the sparse FE's theta and moments (shared
+device code); a localized frame's pose within the CPU tests' pose
 tolerance (the SVD runs in another library on the card)."""
 
 import numpy as np
@@ -18,10 +20,12 @@ import pytest
 import torch
 
 from repro_torch.core import (ORBConfig, PipelineConfig, RigConfig,
-                              VisualSystem, fast)
+                              VisualSystem, extract_features, fast)
 from repro_torch.data import scenes
-from repro_torch.kernels import (describe_fused, frontend_fused,
-                                 match_fused, matcher_fused, ops, sad_fused)
+from repro_torch.kernels import (describe_fused, fast_detect, frontend_fused,
+                                 gaussian_blur, match_fused, matcher_fused,
+                                 ops, sad_fused)
+from repro_torch.kernels.ref import nms3
 
 from parity import (assert_sparse_parity, matcher_case, scene_frames,
                     textured_levels)
@@ -158,3 +162,62 @@ def test_localized_frame_is_four_launches_and_matches_cpu(cuda):
                               atol=1e-4)
         assert torch.allclose(got.pose.translation.cpu(),
                               want.pose.translation, atol=1e-3)
+
+
+@pytest.mark.parametrize("integer", [False, True])
+def test_fast_score_and_blur_kernels_equal_plain_and_dense_fe(cuda, integer):
+    for lv in textured_levels(3, SHAPES + [(70, 100)], integer=integer):
+        x = torch.from_numpy(lv).to(cuda)
+        score = fast_detect.fast_score_map_cuda(x, 20.0)
+        assert torch.equal(score,
+                           frontend_fused.fast_score_plain(x, 20.0))
+        for quantized in (True, False):
+            blur = gaussian_blur.gaussian_blur7_cuda(x, quantized)
+            assert torch.equal(blur,
+                               frontend_fused.blur_plain(x, quantized))
+            flat, slabs = ops.flat_levels([x]), ops._slabs_of([x])
+            k1_blur, k1_score = frontend_fused.frontend_fused_pyramid_cuda(
+                flat, slabs, threshold=20.0, quantized=quantized)
+            assert torch.equal(blur.reshape(-1), k1_blur)
+            assert torch.equal(nms3(score).reshape(-1), k1_score)
+
+
+def test_orient_kernel_equals_plain_and_sparse_fe(cuda):
+    h, w = SHAPES[1]
+    raw = torch.from_numpy(textured_levels(4, [(h, w)],
+                                           integer=True)[0]).to(cuda)
+    rng = np.random.RandomState(1)
+    xy = torch.from_numpy(np.stack(
+        [rng.randint(-8, w + 8, (4, 37)), rng.randint(-8, h + 8, (4, 37))],
+        -1).astype(np.int32)).to(cuda)
+    th_k, mom_k = describe_fused.orient_fused_cuda(raw, xy)
+    th_p, mom_p = describe_fused.orient_fused_plain(raw, xy)
+    zeros = torch.zeros(4, 37, 8, dtype=torch.int32)
+    assert_sparse_parity(th_p.cpu(), mom_p.cpu(), zeros, th_k.cpu(),
+                         mom_k.cpu(), zeros, None, integer=True)
+    sm = ops.fast_blur_nms_pyramid([raw], 20.0)[0][0]
+    th2, mom2, _ = describe_fused.describe_fused_pyramid_cuda(
+        ops.flat_levels([raw]), ops.flat_levels([sm]), ops._slabs_of([raw]),
+        xy, ops._col_levels((37,), str(xy.device)))
+    assert torch.equal(th_k, th2) and torch.equal(mom_k, mom2)
+
+
+@pytest.mark.parametrize("integer", [False, True])
+def test_detect_is_two_launches_and_equals_extract_features(cuda, integer):
+    frame, _ = scene_frames()
+    img = torch.from_numpy(np.round(frame[0]) if integer
+                           else frame[0]).to(cuda)
+    cfg = ORBConfig(height=96, width=128, max_features=64, n_levels=1)
+    k = cfg.features_per_level()[0]
+    before = {n: kern.launches for n, kern in ops.KERNELS.items()}
+    with ops.launch_audit() as audit:
+        xy, _, theta, valid = fast.detect(img, cfg, k)
+        torch.cuda.synchronize()
+    assert audit.count == 2
+    assert ops.KERNELS["fast_score_map"].launches == \
+        before["fast_score_map"] + 1
+    assert ops.KERNELS["orient_fused"].launches == before["orient_fused"] + 1
+    feats = extract_features(img, cfg)
+    assert torch.equal(xy.float(), feats.xy)
+    assert torch.equal(theta, feats.theta)
+    assert torch.equal(valid, feats.valid)
