@@ -69,15 +69,29 @@ failure (the script then exits non-zero and prints no result):
      versions, timed, on the inputs ``stereo_match`` and
      ``sad_rectify`` gave them, stacked over the two pairs
      (2 x 1000 x 1000 and 2 x 1000 centers);
-  8. the card's localized session against the CPU session (plain
+  8. the unfused Feature Matcher schedule at full width, on phase 7's
+     features and both stereo pairs, the frame as rendered and rounded
+     to integers: ``stereo_match_unfused`` exactly 1 launch of the
+     single-pair Hamming matcher (K9), ``sad_rectify_unfused`` 1 of the
+     SAD sweep (K10), ``match_pair_unfused`` 1 of each (counts set to 0
+     just before each call); its MatchSet and DepthSet bit-equal to row
+     p of ``match_pair_fused`` (K3, the JAX package's own pin), to the
+     session's ``stereo_match`` (K4) and ``sad_rectify`` (K5) and to the
+     same calls on CPU tensors; K9 and K10 bit-equal to their plain
+     versions on every input their wrappers received there, and timed
+     (CUDA events, ``torch.profiler``, plain version, bound) on pair
+     0's float inputs (1000 x 1000 features, 1000 windows); then the
+     legacy ``core.frontend.process_quad_frame`` on phase 4's frame:
+     3 launches, a ``DeprecationWarning``, equal to ``process_frame``;
+  9. the card's localized session against the CPU session (plain
      versions) on the JAX tests' small sequence (96 x 128, T = 4,
      K = 96, baseline 0.5 m, 0.25 m lateral steps), rounded to integer
      values: the runs' temporal dist/idx and pose ``valid`` equal,
      poses within 1e-4, and both under the JAX tests' ATE/RPE limits
      (0.4 m, 0.25 m, 1.0 deg); the four entry points as in phase 7 on
      the first pair;
-  9. print the kernels' JSON line, then ``{"ok": true, "device": ...}``
-     as the last line.
+  10. print the kernels' JSON line, then ``{"ok": true, "device": ...}``
+      as the last line.
 
 Tolerances: integer and bool outputs, blur and score are bit-equal.
 theta and the moments are equal on integer-valued frames (every sum is
@@ -92,9 +106,10 @@ so on the same keypoints the two are bit-equal.  Descriptors
 are equal wherever the two steering bins agree; the bins may differ only
 for keypoints whose theta lies within the theta difference (4 ulp on
 integer frames) of a bin edge, and that count is printed.  The
-match-only and SAD-only matchers are bit-equal (integer arithmetic,
-first-occurrence argmins).  Poses come from a 3 x 3 SVD whose library
-differs between the card and the CPU, so they are held to a tolerance.
+match-only and SAD-only matchers, the single-pair Hamming matcher and
+the SAD sweep are bit-equal (integer arithmetic, first-occurrence
+argmins).  Poses come from a 3 x 3 SVD whose library differs between
+the card and the CPU, so they are held to a tolerance.
 """
 
 from __future__ import annotations
@@ -102,6 +117,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -160,6 +176,28 @@ def bound_ms(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
+
+
+def band_search_ops(meta_l: torch.Tensor, meta_r: torch.Tensor, *,
+                    row_band: float, max_disparity: float, **_) -> int:
+    """Operations of the cheapest known masked Hamming argmin on
+    (..., K, 4) x (..., M, 4) meta rows (x, y, level, valid), counted on
+    this run's data: sort each right set by (level, y) once (M log2 M
+    compare-and-moves, 2 each), two binary searches a valid left feature
+    for its row band's ends (2 log2 M), the disparity test of each right
+    feature at its level inside the band (3), and the Hamming distance
+    and running minimum of each pair in the search region (26)."""
+    log_m = math.ceil(math.log2(max(meta_r.shape[-2], 2)))
+    n_right = meta_r[..., 0].numel()
+    n_left = int((meta_l[..., 3] > 0.5).sum())
+    band = ((meta_l[..., :, None, 3] > 0.5) & (meta_r[..., None, :, 3] > 0.5)
+            & (meta_l[..., :, None, 2] == meta_r[..., None, :, 2])
+            & ((meta_l[..., :, None, 1] - meta_r[..., None, :, 1]).abs()
+               <= row_band))
+    dx = meta_l[..., :, None, 0] - meta_r[..., None, :, 0]
+    region = band & (dx >= 0.0) & (dx <= max_disparity)
+    return (n_right * log_m * 2 + n_left * log_m * 2 + int(band.sum()) * 3
+            + int(region.sum()) * 26)
 
 
 def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -328,7 +366,6 @@ def check_matcher(images, cfg, intr, kind: str):
     from repro_torch.core import matching, orb
     from repro_torch.core.types import map_fields
     from repro_torch.kernels import matcher_fused as mf
-    from repro_torch.kernels.hamming_match import masked_hamming
     feats = orb.extract_features_batched(images, cfg)
     li = torch.tensor([0, 2], device=images.device)
     ri = torch.tensor([1, 3], device=images.device)
@@ -358,9 +395,6 @@ def check_matcher(images, cfg, intr, kind: str):
                  max_abs_err=err)
     p, k = args[1].shape[0], args[1].shape[1]
     m = args[3].shape[1]
-    in_region = int((masked_hamming(*args[:4], row_band=kw["row_band"],
-                                    max_disparity=kw["max_disparity"])
-                     < (1 << 20)).sum())
     h, w = images.shape[1:]
     px = 0
     for q in range(p):
@@ -374,7 +408,7 @@ def check_matcher(images, cfg, intr, kind: str):
                         cfg.sad_window + 2 * cfg.sad_range, images.device)
     sweep = 2 * cfg.sad_range + 1
     n_bytes = p * (k + m) * (32 + 16) + px * 4 + p * k * 20
-    n_ops = (p * k * m * 10 + in_region * 26
+    n_ops = (band_search_ops(args[1], args[3], **kw)
              + p * k * sweep * cfg.sad_window ** 2 * 3)
     stats["bound_ms"], stats["bound_by"] = bound_ms(n_bytes, n_ops)
     return stats
@@ -398,11 +432,9 @@ def device_ms(fn, symbol: str, reps: int = REPS):
 
 def check_match_only(args, kw, kind: str):
     """K4 against its plain version on (desc_l, meta_l, desc_r, meta_r)
-    (bit-equal dist and idx), timed; the bound counts the search-region
-    test of every valid left feature against every right feature and
-    the Hamming distance of the pairs inside the region."""
+    (bit-equal dist and idx), timed; the bound counts a banded search
+    (``band_search_ops``) on these inputs."""
     from repro_torch.kernels import match_fused as mo
-    from repro_torch.kernels.hamming_match import masked_hamming
     out_k = mo.match_fused_cuda(*args, **kw)
     out_p = mo.match_fused_plain(*args, **kw)
     torch.cuda.synchronize()
@@ -417,15 +449,14 @@ def check_match_only(args, kw, kind: str):
         raise AssertionError(f"match-only kernel disagrees ({kind})")
     if int((out_k[1] >= 0).sum()) == 0:
         raise AssertionError(f"match-only kernel found nothing ({kind})")
-    in_region = int((masked_hamming(*args, **kw) < (1 << 20)).sum())
-    n_left = int((args[1][..., 3] > 0.5).sum())
     stats = dict(ms=time_ms(lambda: mo.match_fused_cuda(*args, **kw)),
                  device_ms=device_ms(lambda: mo.match_fused_cuda(*args, **kw),
                                      "match_only_kernel"),
                  plain_ms=time_ms(lambda: mo.match_fused_plain(*args, **kw)),
                  max_abs_err=err)
     stats["bound_ms"], stats["bound_by"] = bound_ms(
-        b * (k + m) * (32 + 16) + b * k * 8, n_left * m * 10 + in_region * 26)
+        b * (k + m) * (32 + 16) + b * k * 8,
+        band_search_ops(args[1], args[3], **kw))
     log(f"[match-only/{kind}] {stats['ms']:.4f} ms event, device "
         f"{stats['device_ms']} ms, bound {stats['bound_ms']:.6f} ms "
         f"({stats['bound_by']}), plain {stats['plain_ms']:.4f} ms, library "
@@ -661,6 +692,15 @@ def equal_or_raise(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
     if not torch.equal(a.cpu(), b.cpu()):
         n = int((a.cpu() != b.cpu()).sum())
         raise AssertionError(f"{what}: {n} of {a.numel()} values differ")
+
+
+def equal_fields(a, b, what: str) -> None:
+    """Every tensor of two (nested) output tuples bit-equal."""
+    for name, x, y in zip(getattr(a, "_fields", range(len(a))), a, b):
+        if isinstance(x, tuple):
+            equal_fields(x, y, f"{what} {name}")
+        else:
+            equal_or_raise(x, y, f"{what} {name}")
 
 
 def single_image_phase(frame, cfg, dev):
@@ -1051,23 +1091,164 @@ def entry_points(card, cpu, source, frame0, frame1, pairs, what: str):
                 k4 += r4
             if name == "sad_rectify":
                 k5 += r5
-            want = call(cpu)
-            flat_g = [x for t in (got if isinstance(got, tuple) and not hasattr(
-                got, "_fields") else (got,)) for x in t]
-            flat_c = [x for t in (want if isinstance(want, tuple) and not
-                                  hasattr(want, "_fields") else (want,))
-                      for x in t]
-            same = all(torch.equal(a.cpu(), b) for a, b in zip(flat_g, flat_c))
+            equal_fields(got, call(cpu), f"{name} vs the CPU session")
             log(f"[entry points/{what}] {name} pair ({cl}, {cr}): "
                 f"1 launch ({kernel} {counts[kernel]}), equal to "
-                f"the CPU session: {same}")
-            if not same:
-                raise AssertionError(f"{name}: not equal to the CPU session")
+                "the CPU session: True")
     return total, k4, k5
 
 
+def check_recorded(calls, plain, what: str) -> float:
+    """Each recorded call's output (the kernel's, on the path) bit-equal
+    to ``plain`` on the same inputs; returns the largest |difference|,
+    which is then 0."""
+    for args, kwargs, out in calls:
+        want = plain(*args, **kwargs)
+        got = out if isinstance(out, tuple) else (out,)
+        want = want if isinstance(want, tuple) else (want,)
+        for a, b in zip(got, want):
+            equal_or_raise(a, b, f"{what} vs its plain version")
+    return 0.0
+
+
+UNFUSED_KERNELS = ("hamming_match", "sad_search")
+
+
+def unfused_phase(card, frame0, images, intr, out4):
+    """The unfused FM schedule at full width (phase 8): on the first
+    frame of the 720p sequence (features from the ``card`` session, as
+    in phase 7), both stereo pairs, the frame as rendered and rounded to
+    integers.  ``stereo_match_unfused`` is 1 launch of K9,
+    ``sad_rectify_unfused`` 1 of K10 and ``match_pair_unfused`` 1 of
+    each, every count set to 0 just before the call; the unfused
+    MatchSet and DepthSet are bit-equal to row p of ``match_pair_fused``
+    (K3), to the session's ``stereo_match`` (K4) and ``sad_rectify``
+    (K5) and to the same calls on CPU tensors.  K9 and K10 are held
+    bit-equal to their plain versions on every input their wrappers
+    received, and timed on pair 0's float inputs.  Last, the legacy
+    ``process_quad_frame`` on phase 4's frame (``images``, ``intr``):
+    3 launches, a ``DeprecationWarning``, and equal to phase 4's
+    ``process_frame`` output ``out4``.  Returns (the launches of each
+    kernel summed over the counted calls, the K9 and K10 stats)."""
+    import warnings
+    from repro_torch.core import ORBConfig, frontend, matching
+    from repro_torch.core.types import map_fields
+    from repro_torch.kernels import hamming_match as hm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sad_rectify as sr
+    cfg = card.pipe.orb
+    pair_intr = card.rig.pair_intrinsics[0]
+    li = [cl for cl, _ in card.rig.pairs]
+    ri = [cr for _, cr in card.rig.pairs]
+    feats = card.extract(frame0)
+    fl_all = map_fields(lambda x: x[li], feats)
+    fr_all = map_fields(lambda x: x[ri], feats)
+    total = dict.fromkeys(ops.KERNELS, 0)
+    k9, k10 = [], []
+    for kind in ("float", "integer"):
+        frame = frame0 if kind == "float" else torch.round(frame0)
+        mf, df = matching.match_pair_fused(frame[li], frame[ri], fl_all,
+                                           fr_all, cfg, card._intr)
+        for p, (cl, cr) in enumerate(card.rig.pairs):
+            what = f"{kind} pair ({cl}, {cr})"
+            fl = map_fields(lambda x: x[p], fl_all)
+            fr = map_fields(lambda x: x[p], fr_all)
+            img_l, img_r = frame[cl], frame[cr]
+            with recorded(hm) as r9:
+                m, c9 = counted(
+                    lambda: matching.stereo_match_unfused(fl, fr, cfg),
+                    {"hamming_match": 1}, f"stereo_match_unfused, {what}")
+            with recorded(sr, "sad_search") as r10:
+                d, c10 = counted(
+                    lambda: matching.sad_rectify_unfused(
+                        img_l, img_r, fl, fr, m, cfg, pair_intr),
+                    {"sad_search": 1}, f"sad_rectify_unfused, {what}")
+            with recorded(hm) as r9b, recorded(sr, "sad_search") as r10b:
+                (mu, du), cu = counted(
+                    lambda: matching.match_pair_unfused(
+                        img_l, img_r, fl, fr, cfg, pair_intr),
+                    dict.fromkeys(UNFUSED_KERNELS, 1),
+                    f"match_pair_unfused, {what}")
+            for c in (c9, c10, cu):
+                for n, v in c.items():
+                    total[n] += v
+            k9 += r9 + r9b
+            k10 += r10 + r10b
+            equal_fields(mu, m, f"match_pair_unfused vs stereo_match_unfused,"
+                         f" {what}")
+            equal_fields(du, d, f"match_pair_unfused vs sad_rectify_unfused, "
+                         f"{what}")
+            equal_fields(mu, map_fields(lambda x: x[p], mf),
+                         f"unfused vs fused (K3) matches, {what}")
+            equal_fields(du, map_fields(lambda x: x[p], df),
+                         f"unfused vs fused (K3) depth, {what}")
+            equal_fields(mu, card.stereo_match(fl, fr),
+                         f"unfused vs stereo_match (K4), {what}")
+            equal_fields(du, card.sad_rectify(img_l, img_r, fl, fr, mu),
+                         f"unfused vs sad_rectify (K5), {what}")
+            mc, dc = matching.match_pair_unfused(
+                img_l.cpu(), img_r.cpu(), map_fields(lambda x: x.cpu(), fl),
+                map_fields(lambda x: x.cpu(), fr), cfg, pair_intr)
+            equal_fields(mu, mc, f"unfused card vs CPU matches, {what}")
+            equal_fields(du, dc, f"unfused card vs CPU depth, {what}")
+            log(f"[unfused/{what}] stereo_match_unfused 1 launch (K9), "
+                "sad_rectify_unfused 1 (K10), match_pair_unfused 2; equal to "
+                "fused (K3), stereo_match (K4), sad_rectify (K5) and the CPU; "
+                f"{int(mu.valid.sum())} matches, {int(du.valid.sum())} "
+                "depths")
+            if int(du.valid.sum()) == 0:
+                raise AssertionError(f"unfused schedule found no depth, "
+                                     f"{what}")
+    err9 = check_recorded(k9, hm.hamming_match_plain, "K9")
+    err10 = check_recorded(k10, sr.sad_search_plain, "K10")
+    log(f"[unfused] K9 == plain on all {len(k9)} inputs its wrapper "
+        f"received, K10 == plain on all {len(k10)}")
+
+    # K9 and K10 timed on pair 0's float inputs
+    args9, kw9, _ = k9[0]
+    args10, _, _ = k10[0]
+    k, m = args9[0].shape[0], args9[2].shape[0]
+    in_region = int((hm.masked_hamming(*args9, **kw9) < hm.BIG).sum())
+    kp, p = args10[0].shape[0], args10[0].shape[1]
+    sweep = args10[1].shape[-1] - p + 1
+    stats = {}
+    for name, fn, plain, symbol, nbytes, nops, err in (
+            ("hamming_match", lambda: hm.hamming_match_cuda(*args9, **kw9),
+             lambda: hm.hamming_match_plain(*args9, **kw9),
+             "hamming_argmin_kernel", (k + m) * (32 + 16) + k * 8,
+             band_search_ops(args9[1], args9[3], **kw9), err9),
+            ("sad_search", lambda: sr.sad_search_cuda(*args10),
+             lambda: sr.sad_search_plain(*args10), "sad_search_kernel",
+             (args10[0].numel() + args10[1].numel()) * 4 + kp * sweep * 4,
+             kp * sweep * p * p * 3, err10)):
+        st = dict(ms=time_ms(fn), device_ms=device_ms(fn, symbol),
+                  plain_ms=time_ms(plain), max_abs_err=err)
+        st["bound_ms"], st["bound_by"] = bound_ms(nbytes, nops)
+        stats[name] = st
+        log(f"[{name} 720p pair] {st['ms']:.4f} ms event, device "
+            f"{st['device_ms']} ms, bound {st['bound_ms']:.6f} ms "
+            f"({st['bound_by']}), plain {st['plain_ms']:.4f} ms, library "
+            "call: none")
+    log(f"[unfused] K9 shapes K={k} M={m} ({in_region} pairs in the search "
+        f"region); K10 shapes K={kp} P={p} sweep={sweep}")
+
+    # the legacy frame shim on phase 4's frame
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        quad, _ = counted(
+            lambda: frontend.process_quad_frame(images, ORBConfig(), intr),
+            dict.fromkeys(ops.FRAME_KERNELS, 1), "process_quad_frame")
+    if not any(issubclass(w.category, DeprecationWarning)
+               and str(w.message).startswith("repro_torch.") for w in caught):
+        raise AssertionError("process_quad_frame did not warn")
+    equal_fields(quad, out4, "process_quad_frame vs process_frame")
+    log("[legacy] process_quad_frame: 3 launches, a DeprecationWarning, "
+        "equal to phase 4's process_frame")
+    return total, stats
+
+
 def small_sequence_phase():
-    """The card's localized session against the CPU session (phase 8)."""
+    """The card's localized session against the CPU session (phase 9)."""
     from repro_torch.core import (ORBConfig, PipelineConfig, RigConfig,
                                   VisualSystem)
     from repro_torch.data import scenes
@@ -1255,10 +1436,15 @@ def main() -> int:
     mo_stereo = check_match_only(*stacked(k4_stereo), "stereo_match 720p")
     sad_stats = check_sad_only(*stacked(k5_calls), "sad_rectify 720p")
 
-    # 8. the card's session against the CPU session, small sequence
+    # 8. the unfused FM schedule (K9, K10) at full width, and the legacy
+    #    frame shim
+    unfused_counts, unfused_stats = unfused_phase(vs_loc, seq_frames[0],
+                                                  images, intr, out)
+
+    # 9. the card's session against the CPU session, small sequence
     small_sequence_phase()
 
-    # 9. result lines
+    # 10. result lines
     kernels = []
     meta = {
         "frontend_fused_pyramid": (
@@ -1295,7 +1481,14 @@ def main() -> int:
               for k in ("ms", "device_ms", "plain_ms", "bound_ms")}),
             ("sad_fused", "src/repro_torch/kernels/csrc/sad_fused.cu",
              "src/repro/kernels/matcher_fused.py:275", sad_stats,
-             entry_counts["sad_fused"], {})):
+             entry_counts["sad_fused"], {}),
+            ("hamming_match", "src/repro_torch/kernels/csrc/hamming_match.cu",
+             "src/repro/kernels/hamming_match.py:83",
+             unfused_stats["hamming_match"], unfused_counts["hamming_match"],
+             {}),
+            ("sad_search", "src/repro_torch/kernels/csrc/sad_search.cu",
+             "src/repro/kernels/sad_rectify.py:37",
+             unfused_stats["sad_search"], unfused_counts["sad_search"], {})):
         if n < 1:
             raise AssertionError(f"{name} was not launched on its path")
         kernels.append({

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import typing
 
 import numpy as np
@@ -40,7 +41,7 @@ from repro_torch import localization
 from repro_torch.core import matching, orb
 from repro_torch.core import sync as sync_mod
 from repro_torch.core.rig import DesyncError, RigConfig
-from repro_torch.core.types import (DepthSet, FeatureSet,
+from repro_torch.core.types import (CameraIntrinsics, DepthSet, FeatureSet,
                                     LocalizationOutput, LocalizationState,
                                     MatchSet, ORBConfig, PoseSet,
                                     StereoOutput, combine_fields,
@@ -197,6 +198,15 @@ class VisualSystem:
             f"inter-camera desync (tolerance {self.rig.max_desync:.3e}s)"
             ": time tags must come from the unified trigger clock "
             "(paper Sec. III-A)")
+
+    def check_desync(self, timestamps) -> float:
+        """Legacy strict form of ``desync_decision``: returns the tag
+        spread (seconds, logged to ``desync_log``) and raises
+        ``DesyncError`` when the rig's policy resolves to ``"raise"``."""
+        decision = self.desync_decision(timestamps)
+        if decision.action == "raise":
+            raise self._desync_error(decision.desync)
+        return decision.desync
 
     def _coerce_camera_mask(self, camera_mask, what: str):
         """Validate a caller's (n_cameras,) camera mask; np.bool_."""
@@ -529,3 +539,23 @@ class VisualSystem:
         raise NotImplementedError(
             "run_fleet is not ported yet (ROADMAP A5)")
 
+
+def session_for(cfg: ORBConfig, intr: CameraIntrinsics | None,
+                n_cameras: int = 2, schedule: str = "sequential",
+                device: str | torch.device = "cuda") -> VisualSystem:
+    """Session cache behind the legacy free-function shims: one
+    ``VisualSystem`` per (ORBConfig, intrinsics, camera count, schedule,
+    device), so repeated shim calls reuse one session as a held one
+    would.  Cameras pair up in the legacy [L, R, L, R, ...] order."""
+    return _session_for(cfg, intr, n_cameras, schedule,
+                        str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=128)
+def _session_for(cfg, intr, n_cameras, schedule, device) -> VisualSystem:
+    pairs = tuple((2 * i, 2 * i + 1) for i in range(n_cameras // 2))
+    rig = RigConfig(n_cameras=n_cameras, pairs=pairs,
+                    intrinsics=intr if intr is not None
+                    else CameraIntrinsics())
+    return VisualSystem(rig, PipelineConfig(orb=cfg, schedule=schedule),
+                        device=device)

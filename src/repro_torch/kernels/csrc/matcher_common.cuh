@@ -1,8 +1,10 @@
 // Device code shared by the Feature Matcher kernels: the fused matcher
-// (matcher_fused.cu), the match-only kernel (match_fused.cu) and the
-// SAD-only kernel (sad_fused.cu).  Each kernel gives one warp to one
-// left feature (or one caller-given center pair); the helpers below are
-// what that warp runs.
+// (matcher_fused.cu), the match-only kernel (match_fused.cu), the
+// SAD-only kernel (sad_fused.cu) and the unfused schedule's single-pair
+// Hamming matcher (hamming_match.cu) and SAD sweep (sad_search.cu).
+// Each kernel gives one warp to one left feature (or one caller-given
+// center pair, or one gathered window row); the helpers below are what
+// that warp runs.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -9,8 +9,8 @@ and the localization backend.
 
 Returns (dist (B, K) int32 [``BIG`` when no candidate], idx (B, K)
 int32 [-1]).  The CUDA kernel is ``csrc/match_fused.cu``; the plain
-version below is the same function in PyTorch, and the wrapper picks it
-only for a CPU tensor.
+version is the single-pair matcher's (``hamming_match``) over the batch
+axis, and the wrapper picks it only for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -18,20 +18,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.hamming_match import BIG, masked_hamming
+from repro_torch.kernels.hamming_match import hamming_match_plain
 
 KERNEL = _build.CudaKernel("match_fused", "match_fused", "ppppppiiiff")
 
 
-def match_fused_plain(desc_l, meta_l, desc_r, meta_r, *, row_band: float,
-                      max_disparity: float):
-    """Plain PyTorch version of the match-only kernel."""
-    dist_all = masked_hamming(desc_l, meta_l, desc_r, meta_r,
-                              row_band=float(row_band),
-                              max_disparity=float(max_disparity))
-    best, arg = dist_all.min(dim=-1)      # first occurrence of the min
-    return best, torch.where(best >= BIG, torch.full_like(best, -1),
-                             arg.to(torch.int32))
+#: Plain version of the match-only kernel: the single-pair Hamming
+#: matcher's (K9's), which takes any leading batch axes.
+match_fused_plain = hamming_match_plain
 
 
 def match_fused_cuda(desc_l, meta_l, desc_r, meta_r, *, row_band: float,

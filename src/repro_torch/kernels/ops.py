@@ -1,5 +1,6 @@
 """Dispatch around the port's kernels (port of the fused-path part of
-``repro.kernels.ops``).
+``repro.kernels.ops``, and of its unfused matcher dispatch,
+``hamming_match`` and ``sad_search``).
 
 The functions below keep the JAX package's signatures (lists of
 per-level (B, h, w) batches in, per-level results out) and own the
@@ -24,9 +25,11 @@ from repro_torch.kernels import describe_fused as _describe
 from repro_torch.kernels import fast_detect as _fast
 from repro_torch.kernels import frontend_fused as _frontend
 from repro_torch.kernels import gaussian_blur as _blur
+from repro_torch.kernels import hamming_match as _hamming
 from repro_torch.kernels import match_fused as _match_only
 from repro_torch.kernels import matcher_fused as _matcher
 from repro_torch.kernels import sad_fused as _sad_only
+from repro_torch.kernels import sad_rectify as _sad_search
 from repro_torch.kernels._build import launch_audit  # noqa: F401
 
 #: Every hand-written kernel of the port, by name: the frame's three
@@ -34,7 +37,9 @@ from repro_torch.kernels._build import launch_audit  # noqa: F401
 #: (``stereo_match``, ``temporal_match``, localization), the SAD-only
 #: matcher (``sad_rectify``), and the single-image FE modules' three:
 #: the FAST score map (``fast.detect``), the 7x7 blur (``brief.smooth``)
-#: and orientation only (``fast.orientations``, ``fast.detect``).
+#: and orientation only (``fast.orientations``, ``fast.detect``); last
+#: the unfused FM schedule's two: the single-pair Hamming matcher and
+#: the SAD sweep (``match_pair_unfused``).
 KERNELS = {
     "frontend_fused_pyramid": _frontend.KERNEL,
     "describe_fused_pyramid": _describe.KERNEL,
@@ -44,6 +49,8 @@ KERNELS = {
     "fast_score_map": _fast.KERNEL,
     "gaussian_blur7": _blur.KERNEL,
     "orient_fused": _describe.ORIENT_KERNEL,
+    "hamming_match": _hamming.KERNEL,
+    "sad_search": _sad_search.KERNEL,
 }
 #: The kernels of one frame, each launched once by ``process_frame``.
 FRAME_KERNELS = ("frontend_fused_pyramid", "describe_fused_pyramid",
@@ -193,3 +200,23 @@ def sad_patch_search(img_l, img_r, xy_l, xy_r, *, sad_window: int = 11,
         img_l.float().contiguous(), img_r.float().contiguous(),
         xy_l.float().contiguous(), xy_r.float().contiguous(),
         sad_window=int(sad_window), sad_range=int(sad_range))
+
+
+def hamming_match(desc_l, meta_l, desc_r, meta_r, *, row_band: float,
+                  max_disparity: float):
+    """Fused search-region + Hamming argmin (paper's FM front half) for
+    ONE pair, ONE launch.  desc_*: (K, 8)/(M, 8) int32 bit-views;
+    meta_*: (K, 4)/(M, 4) float32 rows of (x, y, level, valid).  Returns
+    (best_dist (K,) int32 [``BIG`` when no candidate], best_idx (K,)
+    int32 [-1 when no candidate])."""
+    return _hamming.hamming_match(
+        desc_l.contiguous(), meta_l.contiguous(), desc_r.contiguous(),
+        meta_r.contiguous(), row_band=float(row_band),
+        max_disparity=float(max_disparity))
+
+
+def sad_search(left_patches, right_strips):
+    """(K, P, P) x (K, P, P + 2R) gathered windows -> (K, 2R + 1) int32
+    SAD table, ONE launch; pixels truncate to int32 first."""
+    return _sad_search.sad_search(left_patches.float().contiguous(),
+                                  right_strips.float().contiguous())

@@ -8,7 +8,8 @@ has no interpret mode).  Run them on a card with
 not have)
 
 Tolerances as in ``parity.py``: dense FE, the FAST score map, the 7x7
-blur and the three matchers (fused, match-only, SAD-only) bit-equal;
+blur and the five matchers (fused, match-only, SAD-only, and the
+unfused schedule's Hamming matcher and SAD sweep) bit-equal;
 the sparse FE and orientation only under the sparse-FE rule
 (integer-valued inputs here, so moments equal and theta within 1 ulp);
 orientation only bit-equal to the sparse FE's theta and moments (shared
@@ -20,11 +21,12 @@ import pytest
 import torch
 
 from repro_torch.core import (ORBConfig, PipelineConfig, RigConfig,
-                              VisualSystem, extract_features, fast)
+                              VisualSystem, extract_features, fast, matching)
+from repro_torch.core.types import map_fields
 from repro_torch.data import scenes
 from repro_torch.kernels import (describe_fused, fast_detect, frontend_fused,
-                                 gaussian_blur, match_fused, matcher_fused,
-                                 ops, sad_fused)
+                                 gaussian_blur, hamming_match, match_fused,
+                                 matcher_fused, ops, sad_fused, sad_rectify)
 from repro_torch.kernels.ref import nms3
 
 from parity import (assert_sparse_parity, matcher_case, scene_frames,
@@ -221,3 +223,63 @@ def test_detect_is_two_launches_and_equals_extract_features(cuda, integer):
     assert torch.equal(xy.float(), feats.xy)
     assert torch.equal(theta, feats.theta)
     assert torch.equal(valid, feats.valid)
+
+
+def test_hamming_match_kernel_equals_plain(cuda):
+    """One pair at a time: K and M not multiples of anything, planted
+    ties (``matcher_case(ties=True)``) and an empty right set."""
+    for case, m_used in ((dict(seed=0), None), (dict(seed=1, ties=True), None),
+                         (dict(seed=3, k=5, m=130), None),
+                         (dict(seed=4, k=64, m=64), 0)):
+        dl, ml, dr, mr, _, _ = matcher_case(p=1, **case)
+        dr, mr = dr[:, :m_used], mr[:, :m_used]
+        args = [torch.from_numpy(np.ascontiguousarray(a[0])).to(cuda) for a in
+                (dl.view(np.int32), ml, dr.view(np.int32), mr)]
+        kw = dict(row_band=2.0, max_disparity=24.0)
+        got = hamming_match.hamming_match_cuda(*args, **kw)
+        want = hamming_match.hamming_match_plain(*args, **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        found = int((got[1] >= 0).sum())
+        assert found == 0 if m_used == 0 else found > 0
+
+
+@pytest.mark.parametrize("integer", [False, True])
+def test_sad_search_kernel_equals_plain(cuda, integer):
+    rng = np.random.RandomState(6)
+    for window, sad_range, k in ((11, 5, 37), (7, 3, 130), (15, 15, 9)):
+        shapes = ((k, window, window), (k, window, window + 2 * sad_range))
+        lp, rs = (rng.uniform(-20.0, 255.0, s).astype(np.float32)
+                  for s in shapes)
+        if integer:
+            lp, rs = np.round(lp), np.round(rs)
+        lp, rs = (torch.from_numpy(a).to(cuda) for a in (lp, rs))
+        got = sad_rectify.sad_search_cuda(lp, rs)
+        assert torch.equal(got, sad_rectify.sad_search_plain(lp, rs))
+
+
+@pytest.mark.parametrize("integer", [False, True])
+def test_match_pair_unfused_is_two_launches_and_equals_fused(cuda, integer):
+    frame, intr = scene_frames()
+    frame = torch.from_numpy(np.round(frame) if integer else frame).to(cuda)
+    cfg = ORBConfig(height=96, width=128, max_features=64, max_disparity=64)
+    vs = VisualSystem(RigConfig.quad(intr), PipelineConfig(orb=cfg))
+    feats = vs.extract(frame)
+    li, ri = [0, 2], [1, 3]
+    fl, fr = (map_fields(lambda x: x[c], feats) for c in (li, ri))
+    mf, df = matching.match_pair_fused(frame[li], frame[ri], fl, fr, cfg,
+                                       intr)
+    for p in range(2):
+        before = {n: kern.launches for n, kern in ops.KERNELS.items()}
+        with ops.launch_audit() as audit:
+            mu, du = matching.match_pair_unfused(
+                frame[li[p]], frame[ri[p]], map_fields(lambda x: x[p], fl),
+                map_fields(lambda x: x[p], fr), cfg, intr)
+            torch.cuda.synchronize()
+        assert audit.count == 2
+        assert all(ops.KERNELS[n].launches == before[n] + 1
+                   for n in ("hamming_match", "sad_search"))
+        for got, want in ((mf, mu), (df, du)):
+            for a, b in zip(want, got):
+                assert torch.equal(b[p], a)
+    assert int(df.valid.sum()) > 0

@@ -31,10 +31,13 @@ def _port_modules():
 def test_port_imports_without_jax_or_repro():
     mods = _port_modules()
     for m in ("repro_torch.core.backend", "repro_torch.core.brief",
+              "repro_torch.core.frontend",
               "repro_torch.kernels.fast_detect",
               "repro_torch.kernels.gaussian_blur",
+              "repro_torch.kernels.hamming_match",
               "repro_torch.kernels.match_fused",
-              "repro_torch.kernels.sad_fused", "repro_torch.localization",
+              "repro_torch.kernels.sad_fused",
+              "repro_torch.kernels.sad_rectify", "repro_torch.localization",
               "repro_torch.localization.geometry",
               "repro_torch.localization.metrics",
               "repro_torch.localization.pose"):

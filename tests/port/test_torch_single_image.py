@@ -28,10 +28,12 @@ from repro.core import pyramid as jpyramid
 from repro.core.types import ORBConfig as JORBConfig
 from repro.kernels import ops as jops
 from repro_torch.core import (ORBConfig, brief, extract_features,
-                              extract_features_per_level, fast, matching,
+                              extract_features_per_level, fast, frontend,
                               pyramid)
+from repro_torch.core.types import CameraIntrinsics
 from repro_torch.kernels import (_build, describe_fused, fast_detect,
-                                 gaussian_blur, ops)
+                                 gaussian_blur, hamming_match, ops,
+                                 sad_rectify)
 from repro_torch.kernels.ref import extract_patches, moment_grids
 
 from parity import (assert_sparse_parity, desc_u32, np_of, scene_frames,
@@ -263,10 +265,14 @@ def _raises_cases():
             img, cfg, precision="uint8"),
         "extract_features_per_level (K6, K7)":
             lambda: extract_features_per_level(img[None], cfg),
-        "match_pair_unfused (K9, K10)": lambda: matching.match_pair_unfused(),
-        "stereo_match_unfused (K9)": lambda: matching.stereo_match_unfused(),
-        "sad_rectify_unfused (K10)": lambda: matching.sad_rectify_unfused(),
+        "run_sequence_pipelined (A5)": lambda: _pipelined(cfg),
     }
+
+
+def _pipelined(cfg):
+    with pytest.warns(DeprecationWarning, match=r"^repro_torch\."):
+        frontend.run_sequence_pipelined(torch.zeros(1, 4, 16, 16), cfg,
+                                        CameraIntrinsics(), device="cpu")
 
 
 @pytest.mark.parametrize("case", list(_raises_cases()))
@@ -284,17 +290,25 @@ def test_unknown_precision_is_an_error(call):
 
 
 @pytest.mark.parametrize("name", ["fast_score_map", "gaussian_blur7",
-                                  "orient_fused"])
+                                  "orient_fused", "hamming_match",
+                                  "sad_search"])
 def test_non_cpu_tensor_launches_the_kernel_or_raises(name):
     """A tensor off the CPU never falls back to the plain version: the
     wrapper launches its kernel or raises (here: a "meta" tensor, which
     is no CUDA tensor)."""
     img = torch.zeros(1, 8, 8, device="meta")
+    desc = torch.zeros(4, 8, dtype=torch.int32, device="meta")
+    meta = torch.zeros(4, 4, device="meta")
     call = {
         "fast_score_map": lambda: fast_detect.fast_score_map(img, 20.0),
         "gaussian_blur7": lambda: gaussian_blur.gaussian_blur7(img, True),
         "orient_fused": lambda: describe_fused.orient_fused(
             img, torch.zeros(1, 2, 2, dtype=torch.int32, device="meta")),
+        "hamming_match": lambda: hamming_match.hamming_match(
+            desc, meta, desc, meta, row_band=2.0, max_disparity=24.0),
+        "sad_search": lambda: sad_rectify.sad_search(
+            torch.zeros(4, 11, 11, device="meta"),
+            torch.zeros(4, 11, 21, device="meta")),
     }[name]
     kernel = ops.KERNELS[name]
     before = kernel.launches
