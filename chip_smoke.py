@@ -90,7 +90,25 @@ failure (the script then exits non-zero and prints no result):
      poses within 1e-4, and both under the JAX tests' ATE/RPE limits
      (0.4 m, 0.25 m, 1.0 deg); the four entry points as in phase 7 on
      the first pair;
-  10. print the kernels' JSON line, then ``{"ok": true, "device": ...}``
+  10. the per-level FE schedule at full width, on phase 4's quad frame
+      rounded to integers and as rendered: ``extract_features_per_level``
+      exactly 2 launches of the per-level dense FE (K6) and 2 of the
+      per-level sparse FE (K7), none of K1 or K2, with the counts set
+      to 0 just before; its FeatureSet bit-equal to
+      ``extract_features_batched`` (K1 + K2: the JAX package's own
+      pin) and equal to the same call on CPU tensors (xy, level, score,
+      valid bit-equal; moments by the rule below and theta within the
+      moment difference carried through atan2 plus 4 ulp, since the two
+      atan2 are different libraries; descriptors equal wherever the
+      bins agree); K6 bit-equal to its plain version and K7 held to its
+      plain version by the sparse FE's rule on every input their
+      wrappers received; both timed (CUDA events, ``torch.profiler``,
+      plain version, bound per level) on their level-0 float inputs;
+      then the paper's frame-multiplexing comparison: the host ms of
+      either schedule on the float frame (median of 20, each call
+      closed by a synchronize), the device ms of its FE kernels and its
+      launches (4 against 2);
+  11. print the kernels' JSON line, then ``{"ok": true, "device": ...}``
       as the last line.
 
 Tolerances: integer and bool outputs, blur and score are bit-equal.
@@ -102,7 +120,9 @@ summation error of two 961-term sums, gamma_n = n u / (1 - n u)), and
 theta to atan2 of the kernel's own moments within 1 ulp and to the
 other theta within the moment difference carried through atan2 (plus
 4 ulp).  Orientation only (K8) runs the sparse FE's (K2) device code,
-so on the same keypoints the two are bit-equal.  Descriptors
+so on the same keypoints the two are bit-equal; so do the per-level
+dense and sparse FE (K6, K7) K1's and K2's, so the two schedules are
+bit-equal at full width.  Descriptors
 are equal wherever the two steering bins agree; the bins may differ only
 for keypoints whose theta lies within the theta difference (4 ulp on
 integer frames) of a bin edge, and that count is printed.  The
@@ -254,22 +274,85 @@ def hold_theta(th_k, mom_k, th_p, mom_p, s_abs, integer: bool, what: str):
     if ulps(th_k, own) > 1:
         raise AssertionError(f"{what}: theta is not atan2 of its moments")
     dmom = (mom_k - mom_p).abs()
-    spacing = 4.0 * torch.from_numpy(np.spacing(np.abs(
-        th_p.cpu().numpy()))).to(th_p.device)
+    err = float(dmom.max()) if dmom.numel() else 0.0
     if integer:
         if bool((dmom != 0).any()) or ulps(th_k, th_p) > 1:
             raise AssertionError(
                 f"{what}: moments/theta disagree on integer-valued frames")
-        return spacing, float(dmom.max()) if dmom.numel() else 0.0
-    if bool((dmom > 2 * GAMMA_961 * s_abs).any()):
-        raise AssertionError(f"{what}: moments exceed the float summation "
-                             "bound on float frames")
-    hyp = torch.hypot(mom_p[..., 0], mom_p[..., 1]).clamp(min=1e-30)
-    tol = (dmom.sum(-1) / hyp) * 1.01 + spacing
+        return theta_tol(th_p, mom_k, mom_p), err
+    hold_moments(mom_k, mom_p, s_abs, False, what)
+    tol = theta_tol(th_p, mom_k, mom_p)
     if bool(((th_k.double() - th_p.double()).abs() > tol.double()).any()):
         raise AssertionError(f"{what}: theta differs by more than its "
                              "moments allow on float frames")
-    return tol, float(dmom.max()) if dmom.numel() else 0.0
+    return tol, err
+
+
+def theta_tol(th_p, mom_k, mom_p) -> torch.Tensor:
+    """The theta tolerance of each keypoint: the moment difference
+    carried through atan2, plus 4 ulp of theta (4 ulp alone where the
+    moments are equal)."""
+    spacing = 4.0 * torch.from_numpy(np.spacing(np.abs(
+        th_p.cpu().numpy()))).to(th_p.device)
+    hyp = torch.hypot(mom_p[..., 0], mom_p[..., 1]).clamp(min=1e-30)
+    return ((mom_k - mom_p).abs().sum(-1) / hyp) * 1.01 + spacing
+
+
+def hold_moments(mom_k, mom_p, s_abs, integer: bool, what: str) -> None:
+    """Moments equal on integer-valued frames, and within the float
+    summation bound 2 * gamma_961 * sum|x * p| on float frames."""
+    dmom = (mom_k - mom_p.to(mom_k.device)).abs()
+    if bool((dmom > (0.0 if integer else 2 * GAMMA_961 * s_abs)).any()):
+        raise AssertionError(f"{what}: moments beyond the rule on "
+                             f"{'integer-valued' if integer else 'float'} "
+                             "frames")
+
+
+def hold_sparse(out_k, out_p, s_abs, integer: bool, what: str):
+    """(theta, moments, desc) of a sparse FE kernel against another
+    computation of them on the same inputs, under the module note's
+    rule: ``hold_theta``, steering bins that differ only within the
+    theta tolerance of a bin edge, descriptors equal wherever the bins
+    agree.  Returns (the largest moment difference, the largest theta
+    difference in ulp, the keypoints near a bin edge, the bins that
+    differ)."""
+    (th_k, mom_k, desc_k), (th_p, mom_p, desc_p) = out_k, out_p
+    tol, err = hold_theta(th_k, mom_k, th_p, mom_p, s_abs, integer, what)
+    return (err, ulps(th_k, th_p),
+            *hold_bins(th_k, desc_k, th_p, desc_p, tol, what))
+
+
+def hold_bins(th_k, desc_k, th_p, desc_p, tol, what: str):
+    """Steering bins that differ only where theta lies within ``tol`` of
+    a bin edge, and descriptors equal wherever the bins agree.  Returns
+    (the keypoints near a bin edge, the bins that differ)."""
+    from repro_torch.kernels.ref import theta_to_bin
+    edge = near_bin_edge(th_p, tol)
+    bins_differ = theta_to_bin(th_k) != theta_to_bin(th_p)
+    if bool((bins_differ & ~edge).any()):
+        raise AssertionError(f"{what}: steering bins differ away from a "
+                             "bin edge")
+    if bool(((desc_k != desc_p).any(-1) & ~bins_differ).any()):
+        raise AssertionError(f"{what}: descriptors differ where the bins "
+                             "agree")
+    return int(edge.sum()), int(bins_differ.sum())
+
+
+def sparse_bound(pairs):
+    """(bound ms, by) of the sparse FE on [(level (B, h, w), keypoints
+    (B, K, 2))]: each covered level pixel of the raw and the smoothed
+    image read once, the keypoints read and theta, moments and
+    descriptor written, the steering LUT read; SPARSE_OPS_PER_KP a
+    keypoint."""
+    px = n_kp = 0
+    for lv, xy in pairs:
+        h, w = lv.shape[1:]
+        n_kp += xy.shape[0] * xy.shape[1]
+        for cam in range(lv.shape[0]):
+            px += footprint((h, w), xy[cam, :, 0].clamp(0, w - 1),
+                            xy[cam, :, 1].clamp(0, h - 1), 31, 31, lv.device)
+    return bound_ms(2 * px * 4 + n_kp * (8 + 4 + 44) + 12 * 256 * 2 * 4,
+                    n_kp * SPARSE_OPS_PER_KP)
 
 
 def check_dense(levels, cfg, kind: str):
@@ -303,7 +386,6 @@ def check_dense(levels, cfg, kind: str):
 def check_sparse(levels, dense, cfg, kind: str, integer: bool):
     from repro_torch.core import fast
     from repro_torch.kernels import describe_fused as de, ops
-    from repro_torch.kernels.ref import INV_ANGLE_STEP
     ks = cfg.features_per_level()
     xys = [fast.select_topk(sc, k, cfg.border)[0]
            for (_, sc), k in zip(dense, ks)]
@@ -312,13 +394,9 @@ def check_sparse(levels, dense, cfg, kind: str, integer: bool):
     slabs = ops._slabs_of(levels)
     xy = torch.cat(xys, dim=1).contiguous()
     col = ops._col_levels(tuple(ks), str(xy.device))
-    th_k, mom_k, desc_k = de.describe_fused_pyramid_cuda(raw, sm, slabs, xy,
-                                                         col)
-    th_p, mom_p, desc_p = de.describe_fused_pyramid_plain(raw, sm, slabs, xy,
-                                                          col)
+    out_k = de.describe_fused_pyramid_cuda(raw, sm, slabs, xy, col)
+    out_p = de.describe_fused_pyramid_plain(raw, sm, slabs, xy, col)
     torch.cuda.synchronize()
-    bins_k = torch.remainder(torch.round(th_k * INV_ANGLE_STEP).long(), 12)
-    bins_p = torch.remainder(torch.round(th_p * INV_ANGLE_STEP).long(), 12)
     s_abs = None
     if not integer:
         from repro_torch.kernels.describe_fused import _slab_patches
@@ -326,21 +404,12 @@ def check_sparse(levels, dense, cfg, kind: str, integer: bool):
         slab = col.long()[None, :] * b + torch.arange(
             b, device=xy.device)[:, None]
         s_abs = abs_moment_sums(_slab_patches(raw, slab, slabs.table, xy))
-    tol, err = hold_theta(th_k, mom_k, th_p, mom_p, s_abs, integer,
-                          "sparse FE")
-    edge = near_bin_edge(th_p, tol)
-    bins_differ = bins_k != bins_p
-    if bool((bins_differ & ~edge).any()):
-        raise AssertionError("sparse FE steering bins differ away from a "
-                             "bin edge")
-    desc_bad = (desc_k != desc_p).any(-1) & ~bins_differ
-    if bool(desc_bad.any()):
-        raise AssertionError("sparse FE descriptors differ where the bins "
-                             "agree")
+    err, d_ulps, n_edge, n_bins = hold_sparse(out_k, out_p, s_abs, integer,
+                                              "sparse FE")
     log(f"[sparse FE/{kind}] {xy.shape[0] * xy.shape[1]} keypoints: max "
-        f"|d moment| {err}, max theta diff {ulps(th_k, th_p)} ulp, "
-        f"{int(edge.sum())} keypoints within the theta tolerance of a bin "
-        f"edge, {int(bins_differ.sum())} bins differ, descriptors equal "
+        f"|d moment| {err}, max theta diff {d_ulps} ulp, "
+        f"{n_edge} keypoints within the theta tolerance of a bin "
+        f"edge, {n_bins} bins differ, descriptors equal "
         "wherever bins agree")
     stats = dict(
         ms=time_ms(lambda: de.describe_fused_pyramid_cuda(raw, sm, slabs, xy,
@@ -348,17 +417,7 @@ def check_sparse(levels, dense, cfg, kind: str, integer: bool):
         plain_ms=time_ms(lambda: de.describe_fused_pyramid_plain(
             raw, sm, slabs, xy, col)),
         max_abs_err=err)
-    px = 0
-    for lv, x_l in zip(levels, xys):
-        h, w = lv.shape[1:]
-        for cam in range(lv.shape[0]):
-            xc = x_l[cam, :, 0].clamp(0, w - 1)
-            yc = x_l[cam, :, 1].clamp(0, h - 1)
-            px += footprint((h, w), xc, yc, 31, 31, lv.device)
-    n_kp = xy.shape[0] * xy.shape[1]
-    stats["bound_ms"], stats["bound_by"] = bound_ms(
-        2 * px * 4 + n_kp * (8 + 4 + 44) + 12 * 256 * 2 * 4,
-        n_kp * SPARSE_OPS_PER_KP)
+    stats["bound_ms"], stats["bound_by"] = sparse_bound(zip(levels, xys))
     return stats, xys
 
 
@@ -414,10 +473,10 @@ def check_matcher(images, cfg, intr, kind: str):
     return stats
 
 
-def device_ms(fn, symbol: str, reps: int = REPS):
-    """Median device time (ms) of the kernel whose name holds ``symbol``
-    over ``reps`` calls of ``fn``, from ``torch.profiler``; None when the
-    profiler records no device time."""
+def profiled_ms(fn, symbols, reps: int = REPS) -> list:
+    """Device ms of every launch of the kernels whose names hold one of
+    ``symbols``, over ``reps`` calls of ``fn``, from ``torch.profiler``
+    (empty when the profiler records no device time)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -425,8 +484,16 @@ def device_ms(fn, symbol: str, reps: int = REPS):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-             if symbol in e.name and str(e.device_type).endswith("CUDA")]
+    return [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+            if any(sym in e.name for sym in symbols)
+            and str(e.device_type).endswith("CUDA")]
+
+
+def device_ms(fn, symbol: str, reps: int = REPS):
+    """Median device time (ms) of the kernel whose name holds ``symbol``
+    over ``reps`` calls of ``fn``; None when the profiler records no
+    device time."""
+    times = profiled_ms(fn, (symbol,), reps)
     return statistics.median(times) if times else None
 
 
@@ -770,11 +837,8 @@ def single_image_phase(frame, cfg, dev):
                 mom, mom_c = r8[0][2][1][0], r8_cpu[0][2][1][0]
                 s_abs = None if integer else abs_moment_sums(
                     extract_patches(img, xy))
-                dmom = (mom - mom_c.to(dev)).abs()
-                if bool((dmom > (0 if integer else 2 * GAMMA_961 * s_abs))
-                        .any()):
-                    raise AssertionError(f"fast.detect moments card vs CPU "
-                                         f"beyond the rule, {what}")
+                hold_moments(mom, mom_c, s_abs, integer,
+                             f"fast.detect moments card vs CPU, {what}")
                 th_p, mom_p = de.orient_fused_plain(img[None], xy[None])
                 tol, _ = hold_theta(th, mom, th_p[0], mom_p[0], s_abs,
                                     integer, f"fast.detect theta, {what}")
@@ -1247,6 +1311,160 @@ def unfused_phase(card, frame0, images, intr, out4):
     return total, stats
 
 
+PER_LEVEL_KERNELS = ("frontend_fused", "describe_fused")
+
+
+def per_level_phase(frame, cfg, dev):
+    """The per-level FE schedule at full width (phase 10), on phase 4's
+    quad frame rounded to integers and as rendered.
+    ``extract_features_per_level`` is exactly ``cfg.n_levels`` launches
+    of the per-level dense FE (K6) and as many of the per-level sparse
+    FE (K7), with the counts set to 0 just before; its FeatureSet is
+    bit-equal to ``extract_features_batched`` (K1 + K2), the JAX
+    package's own pin, and equals the same call on CPU tensors (xy,
+    level, score and valid bit-equal, moments and theta by the module
+    note's rule, descriptors equal wherever the steering bins agree).
+    K6 is held bit-equal, and K7 by the sparse FE's rule, to its plain
+    version on every input its wrapper received there; both are timed
+    on their level-0 float inputs.  Last, the paper's frame-multiplexing
+    comparison (the JAX package's ``table_whole_frame_vs_per_level``):
+    the host ms of either schedule, each call closed by a synchronize,
+    and the device ms of its FE kernels.  Returns (the launches of each
+    kernel summed over the counted calls, the K6 and K7 stats, the
+    comparison)."""
+    from repro_torch.core.orb import (extract_features_batched,
+                                      extract_features_per_level)
+    from repro_torch.kernels import describe_fused as de
+    from repro_torch.kernels import frontend_fused as fe
+    from repro_torch.kernels import ops
+    n_lv = cfg.n_levels
+    total = dict.fromkeys(ops.KERNELS, 0)
+    k6, k7 = [], {}
+    for kind, integer in (("integer", True), ("float", False)):
+        images = torch.from_numpy(np.round(frame) if integer
+                                  else frame).to(dev).contiguous()
+        with recorded(fe) as r6, recorded(de) as r7:
+            per, counts = counted(
+                lambda: extract_features_per_level(images, cfg),
+                dict.fromkeys(PER_LEVEL_KERNELS, n_lv),
+                f"extract_features_per_level, {kind}")
+        for n, v in counts.items():
+            total[n] += v
+        k6 += r6
+        k7[kind] = r7
+        whole, _ = counted(
+            lambda: extract_features_batched(images, cfg),
+            {"frontend_fused_pyramid": 1, "describe_fused_pyramid": 1},
+            f"extract_features_batched, {kind}")
+        equal_fields(per, whole, f"per-level vs whole-frame (K1 + K2), {kind}")
+        with recorded(de) as r7_cpu:
+            cpu = extract_features_per_level(images.cpu(), cfg)
+        for name in ("xy", "level", "score", "valid"):
+            equal_or_raise(getattr(per, name), getattr(cpu, name),
+                           f"per-level {name} card vs CPU, {kind}")
+        n_edge = n_bins = cpu_ulps = 0
+        for lvl, ((args, _, out), (_, _, out_c)) in enumerate(zip(r7,
+                                                                 r7_cpu)):
+            what = f"per-level sparse FE card vs CPU, {kind} level {lvl}"
+            raw, _, xy = args
+            (th, mom, desc), (th_c, mom_c, desc_c) = out, out_c
+            s_abs = None if integer else abs_moment_sums(
+                de.level_patches(raw, xy))
+            hold_moments(mom, mom_c, s_abs, integer, what)
+            th_c, mom_c, desc_c = (t.to(dev) for t in (th_c, mom_c, desc_c))
+            tol = theta_tol(th_c, mom, mom_c)
+            if bool(((th.double() - th_c.double()).abs() > tol.double())
+                    .any()):
+                raise AssertionError(f"{what}: theta beyond the rule")
+            edge, differ = hold_bins(th, desc, th_c, desc_c, tol, what)
+            n_edge += edge
+            n_bins += differ
+            cpu_ulps = max(cpu_ulps, ulps(th, th_c))
+        log(f"[per-level/{kind}] {n_lv} + {n_lv} launches (K6, K7); "
+            "FeatureSet == extract_features_batched (K1 + K2), every field; "
+            "== the CPU call (xy, level, score, valid; moments and theta by "
+            f"rule, card vs CPU theta {cpu_ulps} ulp at most; {n_edge} "
+            f"keypoints within the tolerance of a bin edge, {n_bins} bins "
+            f"differ; descriptors equal where the bins agree); "
+            f"{int(per.valid.sum())} valid features")
+
+    err6 = check_recorded(k6, fe.frontend_fused_plain, "K6")
+    err7 = 0.0
+    for kind, calls in k7.items():
+        for args, _, out in calls:
+            s_abs = None if kind == "integer" else abs_moment_sums(
+                de.level_patches(args[0], args[2]))
+            err, _, _, _ = hold_sparse(out, de.describe_fused_plain(*args),
+                                       s_abs, kind == "integer",
+                                       f"K7 vs its plain version, {kind}")
+            err7 = max(err7, err)
+    log(f"[per-level] K6 == plain on all {len(k6)} inputs its wrapper "
+        f"received, K7 held to plain by the sparse rule on all "
+        f"{sum(len(c) for c in k7.values())} (max |d moment| {err7})")
+
+    # K6 and K7 timed on their level-0 float inputs; bounds per level
+    f6 = k6[n_lv:]
+    f7 = k7["float"]
+    x, kw6 = f6[0][0][0], f6[0][1]
+    args7 = f7[0][0]
+    b6 = [bound_ms(c[0][0].numel() * 12,
+                   c[0][0].numel() * DENSE_OPS_PER_PIXEL) for c in f6]
+    b7 = [sparse_bound([(c[0][0], c[0][2])]) for c in f7]
+    stats = {}
+    for name, fn, plain, symbol, err, bounds in (
+            ("frontend_fused", lambda: fe.frontend_fused_cuda(x, **kw6),
+             lambda: fe.frontend_fused_plain(x, **kw6),
+             "frontend_level_kernel", err6, b6),
+            ("describe_fused", lambda: de.describe_fused_cuda(*args7),
+             lambda: de.describe_fused_plain(*args7),
+             "describe_level_kernel", err7, b7)):
+        st = dict(ms=time_ms(fn), device_ms=device_ms(fn, symbol),
+                  plain_ms=time_ms(plain), max_abs_err=err,
+                  bound_ms=bounds[0][0], bound_by=bounds[0][1],
+                  bound_ms_levels=[bd for bd, _ in bounds])
+        stats[name] = st
+        log(f"[{name} level 0] {st['ms']:.4f} ms event, device "
+            f"{st['device_ms']} ms, bound {st['bound_ms']:.6f} ms "
+            f"({st['bound_by']}; per level "
+            + ", ".join(f"{bd:.6f} ({by})" for bd, by in bounds)
+            + f"), plain {st['plain_ms']:.4f} ms, library call: none")
+    log(f"[per-level] K6 level-0 shape {tuple(x.shape)}, K7 level-0 "
+        f"keypoints {tuple(args7[2].shape)}")
+
+    # the paper's frame-multiplexing comparison, the float frame
+    images = torch.from_numpy(frame).to(dev).contiguous()
+    schedules = {
+        "per_level": (lambda: extract_features_per_level(images, cfg),
+                      ("frontend_level_kernel", "describe_level_kernel"),
+                      2 * n_lv),
+        "whole_frame": (lambda: extract_features_batched(images, cfg),
+                        ("frontend_kernel", "describe_kernel"), 2)}
+    host = {name: [] for name in schedules}
+    for fn, _, _ in schedules.values():
+        fn()
+    for _ in range(REPS):
+        for name, (fn, _, _) in schedules.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host[name].append((time.perf_counter() - t0) * 1e3)
+    cmp = {}
+    for name, (fn, symbols, n) in schedules.items():
+        cmp[f"{name}_host_ms"] = statistics.median(host[name])
+        times = profiled_ms(fn, symbols)
+        cmp[f"{name}_fe_device_ms"] = sum(times) / REPS if times else None
+        cmp[f"{name}_launches"] = n
+    log(f"[per-level vs whole frame] {tuple(images.shape)} float frame, "
+        f"host ms median of {REPS} (each closed by a synchronize): per-level "
+        f"{cmp['per_level_host_ms']:.4f} ({cmp['per_level_launches']} "
+        f"launches), whole frame {cmp['whole_frame_host_ms']:.4f} "
+        f"({cmp['whole_frame_launches']}); FE kernels' device ms a call: "
+        f"per-level {cmp['per_level_fe_device_ms']}, whole frame "
+        f"{cmp['whole_frame_fe_device_ms']}")
+    return total, stats, cmp
+
+
 def small_sequence_phase():
     """The card's localized session against the CPU session (phase 9)."""
     from repro_torch.core import (ORBConfig, PipelineConfig, RigConfig,
@@ -1444,7 +1662,11 @@ def main() -> int:
     # 9. the card's session against the CPU session, small sequence
     small_sequence_phase()
 
-    # 10. result lines
+    # 10. the per-level FE schedule (K6, K7) at full width
+    per_level_counts, per_level_stats, schedules = per_level_phase(
+        frame, cfg, dev)
+
+    # 11. result lines
     kernels = []
     meta = {
         "frontend_fused_pyramid": (
@@ -1488,7 +1710,21 @@ def main() -> int:
              {}),
             ("sad_search", "src/repro_torch/kernels/csrc/sad_search.cu",
              "src/repro/kernels/sad_rectify.py:37",
-             unfused_stats["sad_search"], unfused_counts["sad_search"], {})):
+             unfused_stats["sad_search"], unfused_counts["sad_search"], {}),
+            ("frontend_fused",
+             "src/repro_torch/kernels/csrc/frontend_level.cu",
+             "src/repro/kernels/frontend_fused.py:235",
+             per_level_stats["frontend_fused"],
+             per_level_counts["frontend_fused"],
+             {"bound_ms_levels":
+              per_level_stats["frontend_fused"]["bound_ms_levels"]}),
+            ("describe_fused",
+             "src/repro_torch/kernels/csrc/describe_level.cu",
+             "src/repro/kernels/describe_fused.py:178",
+             per_level_stats["describe_fused"],
+             per_level_counts["describe_fused"],
+             {"bound_ms_levels":
+              per_level_stats["describe_fused"]["bound_ms_levels"]})):
         if n < 1:
             raise AssertionError(f"{name} was not launched on its path")
         kernels.append({
@@ -1521,7 +1757,8 @@ def main() -> int:
                       "localized_frame_ms_median": loc["frame_ms"],
                       "localized_stage_ms": loc["stages"],
                       "localized_metrics": loc["metrics"],
-                      "localized_host_syncs": loc["host_syncs"]}))
+                      "localized_host_syncs": loc["host_syncs"],
+                      "per_level_vs_whole_frame": schedules}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind_name,
         "count": torch.cuda.device_count()}}), flush=True)

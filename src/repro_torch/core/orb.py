@@ -12,6 +12,10 @@ Then the levels merge into one static-shape FeatureSet with level-0
 coordinates.  ``features_from_levels`` is steps 1-3 on given pyramid
 levels, so a caller (or a test) can feed its own pyramid;
 ``extract_features`` is the single-image view of the same 2 launches.
+``extract_features_per_level`` is the per-level schedule the JAX
+package keeps as its oracle (port of ``repro.core.orb.
+extract_features_per_level``): the same three steps one level at a
+time, 2 launches a level (K6, K7).
 """
 
 from __future__ import annotations
@@ -76,7 +80,21 @@ def extract_features(image: torch.Tensor, cfg: ORBConfig, *,
                                                                cfg))
 
 
-def extract_features_per_level(*args, **kwargs):
-    raise NotImplementedError(
-        "extract_features_per_level, the per-level schedule (K6, K7), is "
-        "not ported yet (ROADMAP A8, K6, K7)")
+def extract_features_per_level(images: torch.Tensor, cfg: ORBConfig, *,
+                               precision: str = "f32") -> FeatureSet:
+    """The per-level schedule: 2 launches a pyramid LEVEL (the dense FE,
+    K6, then top-K, then the sparse FE, K7).  The oracle the whole-frame
+    path (``extract_features_batched``, K1 + K2) is pinned to bit for
+    bit, and the baseline of the paper's frame-multiplexing comparison."""
+    pyramid.check_precision(precision)
+    levels = pyramid.build_pyramid_batched(images, cfg)
+    parts = []
+    for lvl, (imgs_l, k_l) in enumerate(zip(levels,
+                                            cfg.features_per_level())):
+        smoothed, score = ops.fast_blur_nms_batched(
+            imgs_l, float(cfg.fast_threshold), nms=cfg.nms,
+            quantized=cfg.quantized)
+        xy, vals, valid = fast.select_topk(score, k_l, cfg.border)
+        theta, _mom, desc = ops.orient_describe_batched(imgs_l, smoothed, xy)
+        parts.append(_level_features(lvl, cfg, xy, vals, valid, theta, desc))
+    return _merge_levels(parts)

@@ -1,8 +1,10 @@
-// Device code shared by the sparse FE kernels: the fused sparse FE (K2,
-// describe_fused.cu) and orientation-only (K8, orient_fused.cu).  Both
-// load a keypoint's raw patch and derive its moments and theta with the
-// functions below, so K8's theta and moments are bit-equal to K2's on
-// the same keypoints.  Each keypoint is one warp's work.
+// Device code shared by the sparse FE kernels: the fused sparse FE over
+// every slab (K2, describe_fused.cu) and over one level (K7,
+// describe_level.cu), and orientation only (K8, orient_fused.cu).  All
+// three load a keypoint's raw patch and derive its moments and theta
+// with the functions below, so K8's theta and moments are bit-equal to
+// K2's on the same keypoints; K2 and K7 run the same keypoint body
+// (describe_keypoint).  Each keypoint is one warp's work.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -63,6 +65,45 @@ __device__ __forceinline__ float patch_theta(const float* patch, int lane,
   *m10_out = m10;
   *m01_out = m01;
   return atan2f(m01, m10);
+}
+
+// One keypoint of the sparse FE (K2 and K7), one warp: clamp (x, y)
+// into the (h, w) image, load its raw and smoothed 31x31 patches into
+// ``pr`` / ``ps`` (this warp's shared memory), derive the moments and
+// theta, quantize theta to its 30-degree steering bin (round half to
+// even, then a non-negative mod 12), and form the 256 tau bits p(A) <
+// p(B) on the smoothed patch through the bin's row of the (12, 256, 2)
+// steering ``lut``, packed 32 lanes at a time by __ballot_sync (bit i
+// in word i / 32).  Lane 0 writes theta[kp], mom[2 kp..], desc[8 kp..].
+__device__ __forceinline__ void describe_keypoint(
+    const int* __restrict__ lut, const float* __restrict__ raw,
+    const float* __restrict__ sm, int h, int w, int x, int y,
+    float inv_step, int lane, float* pr, float* ps, long long kp,
+    float* __restrict__ theta, float* __restrict__ mom,
+    int* __restrict__ desc) {
+  x = clampi(x, 0, w - 1);
+  y = clampi(y, 0, h - 1);
+  load_patches<true>(raw, sm, h, w, x, y, lane, pr, ps);
+  __syncwarp();
+
+  float m10, m01;
+  const float th = patch_theta(pr, lane, &m10, &m01);
+  int bin = static_cast<int>(rintf(__fmul_rn(th, inv_step))) % 12;
+  if (bin < 0) bin += 12;
+
+  const int* row = lut + bin * 256 * 2;
+#pragma unroll
+  for (int wd = 0; wd < 8; ++wd) {
+    const int i = wd * 32 + lane;
+    const bool tau = ps[row[2 * i]] < ps[row[2 * i + 1]];
+    const unsigned bits = __ballot_sync(FULL, tau);
+    if (lane == 0) desc[kp * 8 + wd] = static_cast<int>(bits);
+  }
+  if (lane == 0) {
+    theta[kp] = th;
+    mom[2 * kp] = m10;
+    mom[2 * kp + 1] = m01;
+  }
 }
 
 }  // namespace describe

@@ -21,13 +21,14 @@
 // lane 0, which broadcasts them, so every lane derives the same theta
 // and bin.  Each tau bit is an exact shared-memory compare: the TPU's
 // +-1 selection matmul is gone, and __ballot_sync packs 32 lanes' bits
-// into one word in the reference's bit order.  The patch load, moments
-// and theta are describe_common.cuh's, shared with K8 (orient_fused.cu).
+// into one word in the reference's bit order.  The keypoint body is
+// describe_common.cuh's describe_keypoint, which the per-level kernel
+// (K7, describe_level.cu) runs too; its patch load, moments and theta
+// are also K8's (orient_fused.cu).
 #include "describe_common.cuh"
 
 namespace {
 
-using describe::FULL;
 using describe::NPIX;
 constexpr int WARPS = 4;
 
@@ -51,32 +52,9 @@ describe_kernel(const int* __restrict__ lut, const float* __restrict__ raw,
   const long long off = table[3 * s];
   const int h = static_cast<int>(table[3 * s + 1]);
   const int w = static_cast<int>(table[3 * s + 2]);
-  const int x = describe::clampi(xy[2 * kp], 0, w - 1);
-  const int y = describe::clampi(xy[2 * kp + 1], 0, h - 1);
-
-  float* pr = s_raw[warp];
-  float* ps = s_sm[warp];
-  describe::load_patches<true>(raw + off, sm + off, h, w, x, y, lane, pr, ps);
-  __syncwarp();
-
-  float m10, m01;
-  const float th = describe::patch_theta(pr, lane, &m10, &m01);
-  int bin = static_cast<int>(rintf(__fmul_rn(th, inv_step))) % 12;
-  if (bin < 0) bin += 12;
-
-  const int* row = lut + bin * 256 * 2;
-#pragma unroll
-  for (int wd = 0; wd < 8; ++wd) {
-    const int i = wd * 32 + lane;
-    const bool tau = ps[row[2 * i]] < ps[row[2 * i + 1]];
-    const unsigned bits = __ballot_sync(FULL, tau);
-    if (lane == 0) desc[kp * 8 + wd] = static_cast<int>(bits);
-  }
-  if (lane == 0) {
-    theta[kp] = th;
-    mom[2 * kp] = m10;
-    mom[2 * kp + 1] = m01;
-  }
+  describe::describe_keypoint(lut, raw + off, sm + off, h, w, xy[2 * kp],
+                              xy[2 * kp + 1], inv_step, lane, s_raw[warp],
+                              s_sm[warp], kp, theta, mom, desc);
 }
 
 }  // namespace

@@ -1,8 +1,10 @@
-// Device code shared by the dense FE kernels: the fused dense FE (K1,
-// frontend_fused.cu), the FAST score map (K11, fast_detect.cu) and the
+// Device code shared by the dense FE kernels: the fused dense FE over
+// every slab (K1, frontend_fused.cu) and over one level (K6,
+// frontend_level.cu), the FAST score map (K11, fast_detect.cu) and the
 // 7x7 blur (K12, gaussian_blur.cu).  Each computes its pixels with the
-// functions below, so the three cannot drift apart: K11 followed by the
-// NMS oracle and K12 are bit-equal to K1's score and blur.
+// functions below, so the four cannot drift apart: K1 and K6 run the
+// same tile body (dense_tile), and K11 followed by the NMS oracle and
+// K12 are bit-equal to K1's score and blur.
 //
 // Every function reads a row-major tile in shared memory through a
 // pointer and a row stride; the tile is loaded with clamped reads
@@ -86,6 +88,77 @@ __device__ __forceinline__ float fast_score(const float* p, int stride,
   }
   const float sc = fmaxf(bright, -dark);
   return sc > threshold ? sc : 0.f;
+}
+
+// The fused dense tile of K1 and K6: a TILE x TILE output tile plus a
+// halo of 4 (blur / FAST circle 3, NMS 1), DENSE_NT threads a block.
+constexpr int DENSE_HALO = RAD + 1;
+constexpr int DENSE_IW = TILE + 2 * DENSE_HALO;
+constexpr int DENSE_NT = 256;
+
+struct DenseTile {
+  float in[DENSE_IW][DENSE_IW];          // the image window, clamped reads
+  float horiz[TILE + 6][TILE];           // the blur's horizontal pass
+  float score[TILE + 2][TILE + 2];       // raw FAST score, with the NMS rim
+};
+
+// The output tile at (ty0, tx0) of an (h, w) image ``img``: the 7x7 blur
+// (quantized round-half-up, or the plain quotient) into ``blur`` and the
+// FAST-9/16 score, 3x3-NMS'd (cs >= max and cs > 0) with ``nms`` or
+// max(cs, 0) without, into ``score``; both row-major (h, w) like
+// ``img``.  Score neighbours outside the image are -1 for NMS, and
+// pixels past the image's edge are neither computed nor stored, so the
+// last partial tile of any shape is masked by the true (h, w).
+__device__ __forceinline__ void dense_tile(const float* __restrict__ img,
+                                           float* __restrict__ blur,
+                                           float* __restrict__ score,
+                                           int h, int w, int ty0, int tx0,
+                                           float threshold, int nms,
+                                           int quantized, DenseTile& s) {
+  load_tile(img, h, w, ty0 - DENSE_HALO, tx0 - DENSE_HALO, DENSE_IW,
+            DENSE_IW, &s.in[0][0], DENSE_NT);
+  __syncthreads();
+
+  // Horizontal pass over the TILE + 6 rows the vertical pass needs.
+  for (int i = threadIdx.x; i < (TILE + 6) * TILE; i += DENSE_NT) {
+    const int r = i / TILE, c = i % TILE;
+    s.horiz[r][c] = blur7(&s.in[r + 1][c + 1], 1);
+  }
+
+  // FAST-9/16 raw score on the (TILE + 2)^2 rim; -1 outside the true
+  // image so image borders never win NMS.
+  for (int i = threadIdx.x; i < (TILE + 2) * (TILE + 2); i += DENSE_NT) {
+    const int r = i / (TILE + 2), c = i % (TILE + 2);
+    const int gy = ty0 - 1 + r, gx = tx0 - 1 + c;
+    s.score[r][c] = (gy >= 0 && gy < h && gx >= 0 && gx < w)
+                        ? fast_score(&s.in[r + 3][c + 3], DENSE_IW,
+                                     threshold)
+                        : -1.f;
+  }
+  __syncthreads();
+
+  // Vertical pass, quantize, NMS, store.
+  for (int i = threadIdx.x; i < TILE * TILE; i += DENSE_NT) {
+    const int r = i / TILE, c = i % TILE;
+    const int gy = ty0 + r, gx = tx0 + c;
+    if (gy >= h || gx >= w) continue;
+    const float b = blur_norm(blur7(&s.horiz[r][c], TILE), quantized);
+    const float cs = s.score[r + 1][c + 1];
+    float out;
+    if (nms) {
+      float m = cs;
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) m = fmaxf(m, s.score[r + dy][c + dx]);
+      out = (cs >= m && cs > 0.f) ? cs : 0.f;
+    } else {
+      out = fmaxf(cs, 0.f);
+    }
+    const long long o = static_cast<long long>(gy) * w + gx;
+    blur[o] = b;
+    score[o] = out;
+  }
 }
 
 }  // namespace frontend

@@ -16,11 +16,15 @@ Ktot; ``col_level`` (Ktot,) gives each column's level, so keypoint
 ``csrc/describe_fused.cu``; the plain version below is the same
 function in PyTorch, and the wrapper picks it only for a CPU tensor.
 
-``orient_fused`` is the orientation-only kernel (port of
-``orient_fused_pallas``, K8; ``csrc/orient_fused.cu``): the same
-moments and theta for (B, K) keypoints of B images of one shape, with
-no smoothed image and no descriptor.  Its plain version is the first
-half of the sparse FE's.
+``describe_fused`` is the per-level kernel (port of
+``describe_fused_pallas``, K7; ``csrc/describe_level.cu``): the same
+theta, moments and descriptor for (B, K) keypoints of B raw and
+smoothed images of ONE level, one launch a level, for the per-level FE
+schedule; it runs K2's keypoint body (``describe_common.cuh``'s
+``describe_keypoint``).  ``orient_fused`` is the orientation-only
+kernel (port of ``orient_fused_pallas``, K8; ``csrc/orient_fused.cu``):
+the same moments and theta with no smoothed image and no descriptor.
+The three plain versions share their patch reads and arithmetic.
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ from repro_torch.kernels.ref import (INV_ANGLE_STEP, PATCH, RADIUS,
 KERNEL = _build.CudaKernel("describe_fused", "describe_fused_pyramid",
                            "pppppppppiif")
 ORIENT_KERNEL = _build.CudaKernel("orient_fused", "orient_fused", "ppppiiii")
+LEVEL_KERNEL = _build.CudaKernel("describe_level", "describe_fused",
+                                 "pppppppiiiif")
 
 
 def _slab_patches(flat: torch.Tensor, slab: torch.Tensor, table, xy):
@@ -51,6 +57,22 @@ def _slab_patches(flat: torch.Tensor, slab: torch.Tensor, table, xy):
     return flat[idx]
 
 
+def level_patches(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) images + (B, K, 2) keypoints -> (B, K, 31, 31) patches,
+    centers clamped into the image, reads edge-clamped."""
+    b, h, w = img.shape
+    slabs = slab_table([(h, w)], b, img.device)
+    slab = torch.arange(b, device=xy.device)[:, None].expand(b, xy.shape[1])
+    return _slab_patches(img.reshape(-1), slab, slabs.table, xy)
+
+
+def _describe_patches(raw_patches: torch.Tensor, sm_patches: torch.Tensor):
+    """Raw and smoothed patches -> (theta, moments, desc): the sparse
+    FE's arithmetic."""
+    theta, mom = patch_theta(raw_patches)
+    return theta, mom, lut_descriptor(sm_patches, theta_to_bin(theta))
+
+
 def describe_fused_pyramid_plain(raw: torch.Tensor, smoothed: torch.Tensor,
                                  slabs: SlabTable, xy: torch.Tensor,
                                  col_level: torch.Tensor):
@@ -59,9 +81,8 @@ def describe_fused_pyramid_plain(raw: torch.Tensor, smoothed: torch.Tensor,
     b = xy.shape[0]
     slab = (col_level.long()[None, :] * b
             + torch.arange(b, device=xy.device)[:, None])
-    theta, mom = patch_theta(_slab_patches(raw, slab, slabs.table, xy))
-    sm = _slab_patches(smoothed, slab, slabs.table, xy)
-    return theta, mom, lut_descriptor(sm, theta_to_bin(theta))
+    return _describe_patches(_slab_patches(raw, slab, slabs.table, xy),
+                             _slab_patches(smoothed, slab, slabs.table, xy))
 
 
 def describe_fused_pyramid_cuda(raw: torch.Tensor, smoothed: torch.Tensor,
@@ -96,25 +117,64 @@ def describe_fused_pyramid(raw: torch.Tensor, smoothed: torch.Tensor,
     return fn(raw, smoothed, slabs, xy, col_level)
 
 
+def describe_fused_plain(raw: torch.Tensor, smoothed: torch.Tensor,
+                         xy: torch.Tensor):
+    """Plain PyTorch version of the per-level sparse FE kernel: K2's on a
+    one-level slab table.  Returns (theta (B, K) f32, moments (B, K, 2)
+    f32, desc (B, K, 8) int32)."""
+    return _describe_patches(level_patches(raw, xy),
+                             level_patches(smoothed, xy))
+
+
+def _check_level(raw: torch.Tensor, xy: torch.Tensor, what: str):
+    if raw.dtype != torch.float32 or xy.dtype != torch.int32:
+        raise ValueError(f"{what} takes float32 images and int32 keypoints")
+    b, h, w = raw.shape
+    k = xy.shape[1]
+    if xy.shape != (b, k, 2):
+        raise ValueError(f"keypoints must be (B, K, 2), got {tuple(xy.shape)}")
+    return b, k, h, w
+
+
+def describe_fused_cuda(raw: torch.Tensor, smoothed: torch.Tensor,
+                        xy: torch.Tensor):
+    """Launch ``csrc/describe_level.cu`` once over every keypoint."""
+    dev = _build.require_cuda(raw, smoothed, xy)
+    b, k, h, w = _check_level(raw, xy, "per-level sparse FE")
+    if smoothed.dtype != torch.float32 or smoothed.shape != raw.shape:
+        raise ValueError("the smoothed image must be float32 and of the "
+                         "raw image's shape")
+    theta = torch.empty((b, k), dtype=torch.float32, device=dev)
+    mom = torch.empty((b, k, 2), dtype=torch.float32, device=dev)
+    desc = torch.empty((b, k, 8), dtype=torch.int32, device=dev)
+    if b * k:
+        LEVEL_KERNEL(dev, steer_lut(str(dev)).data_ptr(), raw.data_ptr(),
+                     smoothed.data_ptr(), xy.data_ptr(), theta.data_ptr(),
+                     mom.data_ptr(), desc.data_ptr(), b, k, h, w,
+                     INV_ANGLE_STEP)
+    return theta, mom, desc
+
+
+def describe_fused(raw: torch.Tensor, smoothed: torch.Tensor,
+                   xy: torch.Tensor):
+    """raw, smoothed: (B, H, W) float32 images of one level; xy: (B, K,
+    2) int32 keypoints, clamped into the image.  Returns (theta (B, K),
+    moments (B, K, 2), desc (B, K, 8) int32).  A CPU tensor runs the
+    plain version; a CUDA tensor launches the kernel."""
+    fn = describe_fused_plain if raw.device.type == "cpu" else describe_fused_cuda
+    return fn(raw, smoothed, xy)
+
+
 def orient_fused_plain(raw: torch.Tensor, xy: torch.Tensor):
     """Plain PyTorch version of the orientation-only kernel.  Returns
     (theta (B, K) f32, moments (B, K, 2) f32)."""
-    b, h, w = raw.shape
-    slabs = slab_table([(h, w)], b, raw.device)
-    slab = torch.arange(b, device=xy.device)[:, None].expand(b, xy.shape[1])
-    return patch_theta(_slab_patches(raw.reshape(-1), slab, slabs.table, xy))
+    return patch_theta(level_patches(raw, xy))
 
 
 def orient_fused_cuda(raw: torch.Tensor, xy: torch.Tensor):
     """Launch ``csrc/orient_fused.cu`` once over every keypoint."""
     dev = _build.require_cuda(raw, xy)
-    if raw.dtype != torch.float32 or xy.dtype != torch.int32:
-        raise ValueError("orientation takes float32 images and int32 "
-                         "keypoints")
-    b, h, w = raw.shape
-    k = xy.shape[1]
-    if xy.shape != (b, k, 2):
-        raise ValueError(f"keypoints must be (B, K, 2), got {tuple(xy.shape)}")
+    b, k, h, w = _check_level(raw, xy, "orientation")
     theta = torch.empty((b, k), dtype=torch.float32, device=dev)
     mom = torch.empty((b, k, 2), dtype=torch.float32, device=dev)
     if b * k:

@@ -13,6 +13,13 @@ The CUDA kernel (``csrc/frontend_fused.cu``) indexes each slab in place
 and clamps its reads, so there is no padded common canvas.  The plain
 version below is the same function in PyTorch; the wrapper picks it
 only for a CPU tensor.
+
+``frontend_fused`` is the per-level kernel (port of
+``frontend_fused_pallas``, K6; ``csrc/frontend_level.cu``): the same
+blur and NMS'd score for a (B, H, W) batch of ONE level, one launch a
+level, for the per-level FE schedule.  K1 and K6 run one tile body
+(``frontend_common.cuh``'s ``dense_tile``), and the plain version of
+K1 is K6's on each run of equal-shape slabs.
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ from repro_torch.kernels.ref import (ARC_LEN, CIRCLE16, GAUSS7_NORM,
 
 KERNEL = _build.CudaKernel("frontend_fused", "frontend_fused_pyramid",
                            "ppppiiifii")
+LEVEL_KERNEL = _build.CudaKernel("frontend_level", "frontend_fused",
+                                 "pppiiifii")
 
 
 class SlabTable(NamedTuple):
@@ -97,11 +106,21 @@ def fast_score_plain(x: torch.Tensor, threshold: float) -> torch.Tensor:
     return torch.where(score > threshold, score, torch.zeros_like(score))
 
 
+def frontend_fused_plain(x: torch.Tensor, *, threshold: float,
+                         nms: bool = True, quantized: bool = True):
+    """Plain PyTorch version of the per-level dense FE kernel: (B, H, W)
+    float32 -> (blur, score), each (B, H, W) float32.  Without NMS the
+    thresholded score is already max(score, 0)."""
+    sc = fast_score_plain(x, float(threshold))
+    return blur_plain(x, quantized), nms3(sc) if nms else sc
+
+
 def frontend_fused_pyramid_plain(flat: torch.Tensor, slabs: SlabTable, *,
                                  threshold: float, nms: bool = True,
                                  quantized: bool = True):
     """Plain PyTorch version of the dense FE kernel: same inputs, same
-    outputs.  Slabs of one shape that lie back to back run as a batch."""
+    outputs.  Slabs of one shape that lie back to back run as a batch,
+    through the per-level plain version."""
     blur = torch.empty_like(flat)
     score = torch.empty_like(flat)
     i = 0
@@ -111,10 +130,10 @@ def frontend_fused_pyramid_plain(flat: torch.Tensor, slabs: SlabTable, *,
         while j < len(slabs.slabs) and slabs.slabs[j][1:] == (h, w):
             j += 1
         n = (j - i) * h * w
-        x = flat[off:off + n].view(j - i, h, w)
-        blur[off:off + n] = blur_plain(x, quantized).reshape(-1)
-        sc = fast_score_plain(x, float(threshold))
-        sc = nms3(sc) if nms else sc
+        b, sc = frontend_fused_plain(flat[off:off + n].view(j - i, h, w),
+                                     threshold=threshold, nms=nms,
+                                     quantized=quantized)
+        blur[off:off + n] = b.reshape(-1)
         score[off:off + n] = sc.reshape(-1)
         i = j
     return blur, score
@@ -148,3 +167,29 @@ def frontend_fused_pyramid(flat: torch.Tensor, slabs: SlabTable, *,
           else frontend_fused_pyramid_cuda)
     return fn(flat, slabs, threshold=threshold, nms=nms,
               quantized=quantized)
+
+
+def frontend_fused_cuda(x: torch.Tensor, *, threshold: float,
+                        nms: bool = True, quantized: bool = True):
+    """Launch ``csrc/frontend_level.cu`` once over a (B, H, W) level."""
+    dev = _build.require_cuda(x)
+    if x.dtype != torch.float32 or x.dim() != 3:
+        raise ValueError("per-level dense FE takes a (B, H, W) float32 "
+                         f"batch, got {x.dtype} {tuple(x.shape)}")
+    blur = torch.empty_like(x)
+    score = torch.empty_like(x)
+    b, h, w = x.shape
+    if x.numel():
+        LEVEL_KERNEL(dev, x.data_ptr(), blur.data_ptr(), score.data_ptr(),
+                     b, h, w, float(threshold), int(bool(nms)),
+                     int(bool(quantized)))
+    return blur, score
+
+
+def frontend_fused(x: torch.Tensor, *, threshold: float, nms: bool = True,
+                   quantized: bool = True):
+    """x: (B, H, W) float32, B images of one level.  Returns (blur,
+    score), each (B, H, W) float32.  A CPU tensor runs the plain
+    version; a CUDA tensor launches the kernel."""
+    fn = frontend_fused_plain if x.device.type == "cpu" else frontend_fused_cuda
+    return fn(x, threshold=threshold, nms=nms, quantized=quantized)

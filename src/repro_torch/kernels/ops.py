@@ -1,6 +1,7 @@
 """Dispatch around the port's kernels (port of the fused-path part of
-``repro.kernels.ops``, and of its unfused matcher dispatch,
-``hamming_match`` and ``sad_search``).
+``repro.kernels.ops``, of its per-level FE dispatch,
+``fast_blur_nms_batched`` and ``orient_describe_batched``, and of its
+unfused matcher dispatch, ``hamming_match`` and ``sad_search``).
 
 The functions below keep the JAX package's signatures (lists of
 per-level (B, h, w) batches in, per-level results out) and own the
@@ -37,9 +38,11 @@ from repro_torch.kernels._build import launch_audit  # noqa: F401
 #: (``stereo_match``, ``temporal_match``, localization), the SAD-only
 #: matcher (``sad_rectify``), and the single-image FE modules' three:
 #: the FAST score map (``fast.detect``), the 7x7 blur (``brief.smooth``)
-#: and orientation only (``fast.orientations``, ``fast.detect``); last
+#: and orientation only (``fast.orientations``, ``fast.detect``); then
 #: the unfused FM schedule's two: the single-pair Hamming matcher and
-#: the SAD sweep (``match_pair_unfused``).
+#: the SAD sweep (``match_pair_unfused``); last the per-level FE
+#: schedule's two: the dense and the sparse FE of one level
+#: (``extract_features_per_level``).
 KERNELS = {
     "frontend_fused_pyramid": _frontend.KERNEL,
     "describe_fused_pyramid": _describe.KERNEL,
@@ -51,6 +54,8 @@ KERNELS = {
     "orient_fused": _describe.ORIENT_KERNEL,
     "hamming_match": _hamming.KERNEL,
     "sad_search": _sad_search.KERNEL,
+    "frontend_fused": _frontend.LEVEL_KERNEL,
+    "describe_fused": _describe.LEVEL_KERNEL,
 }
 #: The kernels of one frame, each launched once by ``process_frame``.
 FRAME_KERNELS = ("frontend_fused_pyramid", "describe_fused_pyramid",
@@ -100,6 +105,23 @@ def fast_blur_nms_pyramid(levels, threshold: float, *, nms: bool = True,
     return list(zip(_split(blur, levels), _split(score, levels)))
 
 
+def _integer_images(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"integer images take the integer variant of {what}, not ported "
+        "yet (ROADMAP A6)")
+
+
+def fast_blur_nms_batched(imgs: torch.Tensor, threshold: float, *,
+                          nms: bool = True, quantized: bool = True):
+    """Per-level dense stage: (B, H, W) float images of one level ->
+    (blur, score), each (B, H, W) float32, in ONE kernel launch."""
+    if not imgs.dtype.is_floating_point:
+        raise _integer_images("the per-level dense FE (K6's uint8 path)")
+    return _frontend.frontend_fused(
+        imgs.to(torch.float32).contiguous(), threshold=float(threshold),
+        nms=bool(nms), quantized=bool(quantized))
+
+
 def _image_batch(img: torch.Tensor) -> torch.Tensor:
     """(H, W) image -> contiguous (1, H, W) float32, a non-float image
     cast first (the JAX package's ``_pad_tiles`` cast)."""
@@ -120,22 +142,27 @@ def gaussian_blur7(img: torch.Tensor, quantized: bool = True) -> torch.Tensor:
 
 def orient_describe_batched(raw: torch.Tensor, smoothed, xy: torch.Tensor):
     """Batched sparse stage for a (B, K) block of keypoints of B images
-    of one shape.  Only its orientation-only form is ported
-    (``smoothed=None``, ``fast.detect``'s path): (B, H, W) float raw
-    images and (B, K, 2) int keypoints (clamped into the image) ->
-    (theta (B, K) float32, moments (B, K, 2) float32, None), ONE
-    launch."""
-    if smoothed is not None:
-        raise NotImplementedError(
-            "orient_describe_batched with a smoothed image is the per-level "
-            "sparse FE (K7), not ported yet (ROADMAP K7, A8)")
-    if not raw.dtype.is_floating_point:
-        raise NotImplementedError(
-            "integer images take the integer variant of orientation (K8's "
-            "uint8 path), not ported yet (ROADMAP A6)")
-    theta, mom = _describe.orient_fused(raw.to(torch.float32).contiguous(),
-                                        xy.to(torch.int32).contiguous())
-    return theta, mom, None
+    of one shape, ONE launch: (B, H, W) float raw and smoothed images
+    and (B, K, 2) int keypoints (clamped into the image) -> (theta
+    (B, K) float32, moments (B, K, 2) float32, desc (B, K, 8) int32),
+    the per-level sparse FE.  ``smoothed=None`` selects orientation only
+    (``fast.detect``'s path) and gives no descriptor (None)."""
+    if smoothed is None:
+        if not raw.dtype.is_floating_point:
+            raise _integer_images("orientation (K8's uint8 path)")
+        theta, mom = _describe.orient_fused(
+            raw.to(torch.float32).contiguous(),
+            xy.to(torch.int32).contiguous())
+        return theta, mom, None
+    if not (raw.dtype.is_floating_point
+            and smoothed.dtype.is_floating_point):
+        raise _integer_images("the per-level sparse FE (K7's uint8 path)")
+    if raw.shape != smoothed.shape:
+        raise ValueError(f"raw {tuple(raw.shape)} and smoothed "
+                         f"{tuple(smoothed.shape)} must be one (B, H, W)")
+    return _describe.describe_fused(raw.to(torch.float32).contiguous(),
+                                    smoothed.to(torch.float32).contiguous(),
+                                    xy.to(torch.int32).contiguous())
 
 
 @functools.lru_cache(maxsize=32)

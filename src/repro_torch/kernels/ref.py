@@ -91,14 +91,28 @@ def moment_grids(device=None):
     return xx * mask, yy * mask
 
 
+def atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``torch.atan2`` whose value for an element does not depend on
+    where the element lies in the tensor.  On the CPU torch computes
+    whole SIMD vectors with one routine and the tail past the last whole
+    vector with another, and the two differ by an ulp; so the operands
+    are padded to a multiple of 64 elements and every element takes the
+    vector routine (one thread, below torch's 32,768-element grain)."""
+    n = y.numel()
+    pad = (-n) % 64
+    yy = torch.cat([y.reshape(-1), y.new_zeros(pad)])
+    xx = torch.cat([x.reshape(-1), x.new_ones(pad)])
+    return torch.atan2(yy, xx)[:n].reshape(y.shape)
+
+
 def patch_theta(patches: torch.Tensor):
     """(..., 31, 31) raw patches -> (theta (...,), moments (..., 2)):
     intensity-centroid moments over the circular patch (paper Eq. 1),
-    theta = atan2(m01, m10)."""
+    theta = atan2(m01, m10), the same for a keypoint in any batch."""
     xg, yg = moment_grids(patches.device)
     m10 = (patches * xg).sum(dim=(-2, -1))
     m01 = (patches * yg).sum(dim=(-2, -1))
-    return torch.atan2(m01, m10), torch.stack([m10, m01], dim=-1)
+    return atan2(m01, m10), torch.stack([m10, m01], dim=-1)
 
 
 def theta_to_bin(theta: torch.Tensor) -> torch.Tensor:

@@ -7,21 +7,26 @@ has no interpret mode).  Run them on a card with
 (the other files of ``tests/port`` import jax, which a card host may
 not have)
 
-Tolerances as in ``parity.py``: dense FE, the FAST score map, the 7x7
-blur and the five matchers (fused, match-only, SAD-only, and the
-unfused schedule's Hamming matcher and SAD sweep) bit-equal;
-the sparse FE and orientation only under the sparse-FE rule
-(integer-valued inputs here, so moments equal and theta within 1 ulp);
-orientation only bit-equal to the sparse FE's theta and moments (shared
-device code); a localized frame's pose within the CPU tests' pose
-tolerance (the SVD runs in another library on the card)."""
+Tolerances as in ``parity.py``: dense FE (whole frame and per level),
+the FAST score map, the 7x7 blur and the five matchers (fused,
+match-only, SAD-only, and the unfused schedule's Hamming matcher and SAD
+sweep) bit-equal; the sparse FE (whole frame and per level) and
+orientation only under the sparse-FE rule (integer-valued inputs here,
+so moments equal and theta within 1 ulp); orientation only and the
+per-level sparse FE bit-equal to the whole-frame sparse FE, and the
+per-level dense FE to the whole-frame one (shared device code), so the
+per-level schedule equals the whole-frame one; a localized frame's pose
+within the CPU tests' pose tolerance (the SVD runs in another library on
+the card)."""
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import (ORBConfig, PipelineConfig, RigConfig,
-                              VisualSystem, extract_features, fast, matching)
+                              VisualSystem, extract_features,
+                              extract_features_batched,
+                              extract_features_per_level, fast, matching)
 from repro_torch.core.types import map_fields
 from repro_torch.data import scenes
 from repro_torch.kernels import (describe_fused, fast_detect, frontend_fused,
@@ -283,3 +288,74 @@ def test_match_pair_unfused_is_two_launches_and_equals_fused(cuda, integer):
             for a, b in zip(want, got):
                 assert torch.equal(b[p], a)
     assert int(df.valid.sum()) > 0
+
+
+@pytest.mark.parametrize("integer", [False, True])
+def test_frontend_level_kernel_equals_plain_and_dense_fe(cuda, integer):
+    """K6 on levels down to one smaller than a 32-pixel tile, bit-equal
+    to its plain version and to K1 on the same level."""
+    for lv in textured_levels(5, SHAPES + [(37, 53), (18, 26)],
+                              integer=integer):
+        x = torch.from_numpy(lv).to(cuda)
+        for nms, quantized in ((True, True), (False, True), (True, False)):
+            kw = dict(threshold=20.0, nms=nms, quantized=quantized)
+            got = frontend_fused.frontend_fused_cuda(x, **kw)
+            want = frontend_fused.frontend_fused_plain(x, **kw)
+            k1 = frontend_fused.frontend_fused_pyramid_cuda(
+                ops.flat_levels([x]), ops._slabs_of([x]), **kw)
+            for a, b, c in zip(got, want, k1):
+                assert torch.equal(a, b)
+                assert torch.equal(a.reshape(-1), c)
+
+
+def test_describe_level_kernel_equals_plain_and_sparse_fe(cuda):
+    """K7 at K = 37 (no multiple of the 4-warp block), keypoints up to
+    8 px past every edge, against its plain version and K2; K = 0 makes
+    no launch."""
+    h, w = SHAPES[1]
+    raw = torch.from_numpy(textured_levels(6, [(h, w)],
+                                           integer=True)[0]).to(cuda)
+    sm = frontend_fused.frontend_fused_cuda(raw, threshold=20.0)[0]
+    rng = np.random.RandomState(2)
+    xy = torch.from_numpy(np.stack(
+        [rng.randint(-8, w + 8, (4, 37)), rng.randint(-8, h + 8, (4, 37))],
+        -1).astype(np.int32)).to(cuda)
+    got = describe_fused.describe_fused_cuda(raw, sm, xy)
+    want = describe_fused.describe_fused_plain(raw, sm, xy)
+    assert_sparse_parity(*[t.cpu() for t in want], *[t.cpu() for t in got],
+                         None, integer=True)
+    k2 = describe_fused.describe_fused_pyramid_cuda(
+        ops.flat_levels([raw]), ops.flat_levels([sm]), ops._slabs_of([raw]),
+        xy, ops._col_levels((37,), str(xy.device)))
+    for a, b in zip(got, k2):
+        assert torch.equal(a, b)
+    before = describe_fused.LEVEL_KERNEL.launches
+    empty = describe_fused.describe_fused_cuda(raw, sm,
+                                               xy[:, :0].contiguous())
+    assert [tuple(t.shape) for t in empty] == [(4, 0), (4, 0, 2), (4, 0, 8)]
+    assert describe_fused.LEVEL_KERNEL.launches == before
+
+
+@pytest.mark.parametrize("integer", [False, True])
+def test_per_level_is_two_launches_a_level_and_equals_whole_frame(cuda,
+                                                                   integer):
+    frame, _ = scene_frames()
+    small = np.random.RandomState(3).randint(0, 256, (3, 37, 53))
+    for imgs, cfg in (
+            (frame, ORBConfig(height=96, width=128, max_features=64)),
+            (small, ORBConfig(height=37, width=53, max_features=48,
+                              n_levels=5))):
+        imgs = torch.from_numpy((np.round(imgs) if integer else imgs)
+                                .astype(np.float32)).to(cuda)
+        before = {n: kern.launches for n, kern in ops.KERNELS.items()}
+        with ops.launch_audit() as audit:
+            per = extract_features_per_level(imgs, cfg)
+            torch.cuda.synchronize()
+        assert audit.count == 2 * cfg.n_levels
+        for n, kern in ops.KERNELS.items():
+            step = cfg.n_levels if n in ("frontend_fused",
+                                         "describe_fused") else 0
+            assert kern.launches == before[n] + step, n
+        whole = extract_features_batched(imgs, cfg)
+        for name in per._fields:
+            assert torch.equal(getattr(per, name), getattr(whole, name)), name

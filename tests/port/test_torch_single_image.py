@@ -32,8 +32,8 @@ from repro_torch.core import (ORBConfig, brief, extract_features,
                               pyramid)
 from repro_torch.core.types import CameraIntrinsics
 from repro_torch.kernels import (_build, describe_fused, fast_detect,
-                                 gaussian_blur, hamming_match, ops,
-                                 sad_rectify)
+                                 frontend_fused, gaussian_blur, hamming_match,
+                                 ops, sad_rectify)
 from repro_torch.kernels.ref import extract_patches, moment_grids
 
 from parity import (assert_sparse_parity, desc_u32, np_of, scene_frames,
@@ -252,19 +252,23 @@ def _raises_cases():
     img = torch.zeros(16, 16)
     xy = torch.zeros(1, 4, 2, dtype=torch.int32)
     cfg = ORBConfig(height=16, width=16)
+    u8 = img[None].to(torch.uint8)
     return {
-        "smoothed (K7)": lambda: ops.orient_describe_batched(img[None],
-                                                             img[None], xy),
         "uint8 orientation (A6)": lambda: ops.orient_describe_batched(
-            img[None].to(torch.uint8), None, xy),
+            u8, None, xy),
+        "uint8 per-level dense FE (A6)": lambda: ops.fast_blur_nms_batched(
+            u8, 20.0),
+        "uint8 per-level sparse FE (A6)": lambda: ops.orient_describe_batched(
+            u8, u8, xy),
+        "uint8 extract_features_per_level (A6)":
+            lambda: extract_features_per_level(img[None], cfg,
+                                               precision="uint8"),
         "uint8 orientations (A6)": lambda: fast.orientations(
             img.to(torch.uint8), xy[0]),
         "uint8 pyramid (A6)": lambda: pyramid.build_pyramid(
             img, cfg, precision="uint8"),
         "uint8 extract_features (A6)": lambda: extract_features(
             img, cfg, precision="uint8"),
-        "extract_features_per_level (K6, K7)":
-            lambda: extract_features_per_level(img[None], cfg),
         "run_sequence_pipelined (A5)": lambda: _pipelined(cfg),
     }
 
@@ -277,7 +281,8 @@ def _pipelined(cfg):
 
 @pytest.mark.parametrize("case", list(_raises_cases()))
 def test_later_slices_raise_not_implemented(case):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    item = case[case.rindex("(") + 1:-1]
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         _raises_cases()[case]()
 
 
@@ -291,7 +296,8 @@ def test_unknown_precision_is_an_error(call):
 
 @pytest.mark.parametrize("name", ["fast_score_map", "gaussian_blur7",
                                   "orient_fused", "hamming_match",
-                                  "sad_search"])
+                                  "sad_search", "frontend_fused",
+                                  "describe_fused"])
 def test_non_cpu_tensor_launches_the_kernel_or_raises(name):
     """A tensor off the CPU never falls back to the plain version: the
     wrapper launches its kernel or raises (here: a "meta" tensor, which
@@ -309,6 +315,10 @@ def test_non_cpu_tensor_launches_the_kernel_or_raises(name):
         "sad_search": lambda: sad_rectify.sad_search(
             torch.zeros(4, 11, 11, device="meta"),
             torch.zeros(4, 11, 21, device="meta")),
+        "frontend_fused": lambda: frontend_fused.frontend_fused(
+            img, threshold=20.0),
+        "describe_fused": lambda: describe_fused.describe_fused(
+            img, img, torch.zeros(1, 2, 2, dtype=torch.int32, device="meta")),
     }[name]
     kernel = ops.KERNELS[name]
     before = kernel.launches
