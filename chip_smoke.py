@@ -103,7 +103,8 @@ failure (the script then exits non-zero and prints no result):
       bins agree); K6 bit-equal to its plain version and K7 held to its
       plain version by the sparse FE's rule on every input their
       wrappers received; both timed (CUDA events, ``torch.profiler``,
-      plain version, bound per level) on their level-0 float inputs;
+      plain version, bound) on each level's float inputs, the row's
+      own numbers being level 0's;
       then the paper's frame-multiplexing comparison: the host ms of
       either schedule on the float frame (median of 20, each call
       closed by a synchronize), the device ms of its FE kernels and its
@@ -264,27 +265,34 @@ def abs_moment_sums(patches: torch.Tensor) -> torch.Tensor:
                         (patches * yg).abs().sum((-2, -1))], -1)
 
 
-def hold_theta(th_k, mom_k, th_p, mom_p, s_abs, integer: bool, what: str):
+def hold_theta(th_k, mom_k, th_p, mom_p, s_abs, integer: bool, what: str,
+               *, same_library: bool = True):
     """Theta and moments of a kernel (``_k``) against another computation
     of them (``_p``) under the module note's rule; raises where it fails.
     ``s_abs`` is ``abs_moment_sums`` of the raw patches (float frames
-    only).  Returns (the theta tolerance of each keypoint, for the bin
-    check, and the largest moment difference)."""
+    only).  With ``same_library=False`` (the card's theta against the
+    CPU's: two atan2 libraries) the moments are held as always, but theta
+    within the moment difference carried through atan2 plus 4 ulp on
+    integer frames too, instead of 1 ulp.  Returns (the theta tolerance
+    of each keypoint, for the bin check, and the largest moment
+    difference)."""
     own = torch.atan2(mom_k[..., 1], mom_k[..., 0])
     if ulps(th_k, own) > 1:
         raise AssertionError(f"{what}: theta is not atan2 of its moments")
+    mom_p = mom_p.to(mom_k.device)
     dmom = (mom_k - mom_p).abs()
     err = float(dmom.max()) if dmom.numel() else 0.0
-    if integer:
-        if bool((dmom != 0).any()) or ulps(th_k, th_p) > 1:
-            raise AssertionError(
-                f"{what}: moments/theta disagree on integer-valued frames")
-        return theta_tol(th_p, mom_k, mom_p), err
-    hold_moments(mom_k, mom_p, s_abs, False, what)
+    hold_moments(mom_k, mom_p, s_abs, integer, what)
+    th_p = th_p.to(th_k.device)
     tol = theta_tol(th_p, mom_k, mom_p)
-    if bool(((th_k.double() - th_p.double()).abs() > tol.double()).any()):
+    if integer and same_library:
+        if ulps(th_k, th_p) > 1:
+            raise AssertionError(
+                f"{what}: theta differs by more than 1 ulp on "
+                "integer-valued frames")
+    elif bool(((th_k.double() - th_p.double()).abs() > tol.double()).any()):
         raise AssertionError(f"{what}: theta differs by more than its "
-                             "moments allow on float frames")
+                             "moments allow")
     return tol, err
 
 
@@ -308,7 +316,8 @@ def hold_moments(mom_k, mom_p, s_abs, integer: bool, what: str) -> None:
                              "frames")
 
 
-def hold_sparse(out_k, out_p, s_abs, integer: bool, what: str):
+def hold_sparse(out_k, out_p, s_abs, integer: bool, what: str, *,
+                same_library: bool = True):
     """(theta, moments, desc) of a sparse FE kernel against another
     computation of them on the same inputs, under the module note's
     rule: ``hold_theta``, steering bins that differ only within the
@@ -317,7 +326,9 @@ def hold_sparse(out_k, out_p, s_abs, integer: bool, what: str):
     difference in ulp, the keypoints near a bin edge, the bins that
     differ)."""
     (th_k, mom_k, desc_k), (th_p, mom_p, desc_p) = out_k, out_p
-    tol, err = hold_theta(th_k, mom_k, th_p, mom_p, s_abs, integer, what)
+    th_p, desc_p = th_p.to(th_k.device), desc_p.to(desc_k.device)
+    tol, err = hold_theta(th_k, mom_k, th_p, mom_p, s_abs, integer, what,
+                          same_library=same_library)
     return (err, ulps(th_k, th_p),
             *hold_bins(th_k, desc_k, th_p, desc_p, tol, what))
 
@@ -1326,7 +1337,7 @@ def per_level_phase(frame, cfg, dev):
     note's rule, descriptors equal wherever the steering bins agree).
     K6 is held bit-equal, and K7 by the sparse FE's rule, to its plain
     version on every input its wrapper received there; both are timed
-    on their level-0 float inputs.  Last, the paper's frame-multiplexing
+    on each level's float inputs.  Last, the paper's frame-multiplexing
     comparison (the JAX package's ``table_whole_frame_vs_per_level``):
     the host ms of either schedule, each call closed by a synchronize,
     and the device ms of its FE kernels.  Returns (the launches of each
@@ -1365,21 +1376,15 @@ def per_level_phase(frame, cfg, dev):
         n_edge = n_bins = cpu_ulps = 0
         for lvl, ((args, _, out), (_, _, out_c)) in enumerate(zip(r7,
                                                                  r7_cpu)):
-            what = f"per-level sparse FE card vs CPU, {kind} level {lvl}"
-            raw, _, xy = args
-            (th, mom, desc), (th_c, mom_c, desc_c) = out, out_c
             s_abs = None if integer else abs_moment_sums(
-                de.level_patches(raw, xy))
-            hold_moments(mom, mom_c, s_abs, integer, what)
-            th_c, mom_c, desc_c = (t.to(dev) for t in (th_c, mom_c, desc_c))
-            tol = theta_tol(th_c, mom, mom_c)
-            if bool(((th.double() - th_c.double()).abs() > tol.double())
-                    .any()):
-                raise AssertionError(f"{what}: theta beyond the rule")
-            edge, differ = hold_bins(th, desc, th_c, desc_c, tol, what)
+                de.level_patches(args[0], args[2]))
+            _, d_ulps, edge, differ = hold_sparse(
+                out, out_c, s_abs, integer,
+                f"per-level sparse FE card vs CPU, {kind} level {lvl}",
+                same_library=False)
             n_edge += edge
             n_bins += differ
-            cpu_ulps = max(cpu_ulps, ulps(th, th_c))
+            cpu_ulps = max(cpu_ulps, d_ulps)
         log(f"[per-level/{kind}] {n_lv} + {n_lv} launches (K6, K7); "
             "FeatureSet == extract_features_batched (K1 + K2), every field; "
             "== the CPU call (xy, level, score, valid; moments and theta by "
@@ -1402,34 +1407,40 @@ def per_level_phase(frame, cfg, dev):
         f"received, K7 held to plain by the sparse rule on all "
         f"{sum(len(c) for c in k7.values())} (max |d moment| {err7})")
 
-    # K6 and K7 timed on their level-0 float inputs; bounds per level
+    # K6 and K7 timed on each level's float inputs; the row's own
+    # numbers are level 0's
     f6 = k6[n_lv:]
     f7 = k7["float"]
-    x, kw6 = f6[0][0][0], f6[0][1]
-    args7 = f7[0][0]
-    b6 = [bound_ms(c[0][0].numel() * 12,
-                   c[0][0].numel() * DENSE_OPS_PER_PIXEL) for c in f6]
-    b7 = [sparse_bound([(c[0][0], c[0][2])]) for c in f7]
     stats = {}
-    for name, fn, plain, symbol, err, bounds in (
-            ("frontend_fused", lambda: fe.frontend_fused_cuda(x, **kw6),
-             lambda: fe.frontend_fused_plain(x, **kw6),
-             "frontend_level_kernel", err6, b6),
-            ("describe_fused", lambda: de.describe_fused_cuda(*args7),
-             lambda: de.describe_fused_plain(*args7),
-             "describe_level_kernel", err7, b7)):
-        st = dict(ms=time_ms(fn), device_ms=device_ms(fn, symbol),
-                  plain_ms=time_ms(plain), max_abs_err=err,
-                  bound_ms=bounds[0][0], bound_by=bounds[0][1],
-                  bound_ms_levels=[bd for bd, _ in bounds])
+    for name, calls, cuda, plain, symbol, err, bound in (
+            ("frontend_fused", f6, fe.frontend_fused_cuda,
+             fe.frontend_fused_plain, "frontend_level_kernel", err6,
+             lambda args: bound_ms(args[0].numel() * 12,
+                                   args[0].numel() * DENSE_OPS_PER_PIXEL)),
+            ("describe_fused", f7, de.describe_fused_cuda,
+             de.describe_fused_plain, "describe_level_kernel", err7,
+             lambda args: sparse_bound([(args[0], args[2])]))):
+        per = []
+        for args, kw, _ in calls:
+            per.append(dict(
+                ms=time_ms(lambda: cuda(*args, **kw)),
+                device_ms=device_ms(lambda: cuda(*args, **kw), symbol),
+                plain_ms=time_ms(lambda: plain(*args, **kw)),
+                bound=bound(args)))
+        st = dict(per[0], max_abs_err=err, bound_ms=per[0]["bound"][0],
+                  bound_by=per[0]["bound"][1])
+        del st["bound"]
+        for key in ("ms", "device_ms", "plain_ms"):
+            st[f"{key}_levels"] = [lv[key] for lv in per]
+        st["bound_ms_levels"] = [lv["bound"][0] for lv in per]
         stats[name] = st
-        log(f"[{name} level 0] {st['ms']:.4f} ms event, device "
-            f"{st['device_ms']} ms, bound {st['bound_ms']:.6f} ms "
-            f"({st['bound_by']}; per level "
-            + ", ".join(f"{bd:.6f} ({by})" for bd, by in bounds)
-            + f"), plain {st['plain_ms']:.4f} ms, library call: none")
-    log(f"[per-level] K6 level-0 shape {tuple(x.shape)}, K7 level-0 "
-        f"keypoints {tuple(args7[2].shape)}")
+        for lvl, (lv, (args, _, _)) in enumerate(zip(per, calls)):
+            log(f"[{name} level {lvl}] inputs {tuple(args[0].shape)}"
+                + (f", keypoints {tuple(args[2].shape)}" if len(args) > 2
+                   else "")
+                + f": {lv['ms']:.4f} ms event, device {lv['device_ms']} ms, "
+                f"bound {lv['bound'][0]:.6f} ms ({lv['bound'][1]}), plain "
+                f"{lv['plain_ms']:.4f} ms, library call: none")
 
     # the paper's frame-multiplexing comparison, the float frame
     images = torch.from_numpy(frame).to(dev).contiguous()
@@ -1716,15 +1727,15 @@ def main() -> int:
              "src/repro/kernels/frontend_fused.py:235",
              per_level_stats["frontend_fused"],
              per_level_counts["frontend_fused"],
-             {"bound_ms_levels":
-              per_level_stats["frontend_fused"]["bound_ms_levels"]}),
+             {f"{k}_levels": per_level_stats["frontend_fused"][f"{k}_levels"]
+              for k in ("ms", "device_ms", "plain_ms", "bound_ms")}),
             ("describe_fused",
              "src/repro_torch/kernels/csrc/describe_level.cu",
              "src/repro/kernels/describe_fused.py:178",
              per_level_stats["describe_fused"],
              per_level_counts["describe_fused"],
-             {"bound_ms_levels":
-              per_level_stats["describe_fused"]["bound_ms_levels"]})):
+             {f"{k}_levels": per_level_stats["describe_fused"][f"{k}_levels"]
+              for k in ("ms", "device_ms", "plain_ms", "bound_ms")})):
         if n < 1:
             raise AssertionError(f"{name} was not launched on its path")
         kernels.append({

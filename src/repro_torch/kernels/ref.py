@@ -91,18 +91,26 @@ def moment_grids(device=None):
     return xx * mask, yy * mask
 
 
+# Elements of one torch.atan2 call: a multiple of 64, and below torch's
+# 32,768-element grain, so the call runs on one thread.
+ATAN2_CHUNK = 16384
+
+
 def atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``torch.atan2`` whose value for an element does not depend on
     where the element lies in the tensor.  On the CPU torch computes
     whole SIMD vectors with one routine and the tail past the last whole
-    vector with another, and the two differ by an ulp; so the operands
-    are padded to a multiple of 64 elements and every element takes the
-    vector routine (one thread, below torch's 32,768-element grain)."""
+    vector with another, and the two differ by an ulp; each thread of a
+    larger call has such a tail too.  So the operands are padded to a
+    multiple of 64 elements and taken in ``ATAN2_CHUNK``-element calls,
+    each on one thread, and every element takes the vector routine."""
     n = y.numel()
     pad = (-n) % 64
     yy = torch.cat([y.reshape(-1), y.new_zeros(pad)])
     xx = torch.cat([x.reshape(-1), x.new_ones(pad)])
-    return torch.atan2(yy, xx)[:n].reshape(y.shape)
+    out = torch.cat([torch.atan2(a, b) for a, b in
+                     zip(yy.split(ATAN2_CHUNK), xx.split(ATAN2_CHUNK))])
+    return out[:n].reshape(y.shape)
 
 
 def patch_theta(patches: torch.Tensor):

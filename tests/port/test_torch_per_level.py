@@ -5,7 +5,9 @@ against the JAX package's (``impl="ref"``) on identical inputs made
 with numpy from a seed, on the JAX tests' shapes (a level smaller than
 one 32-pixel tile among them), and against the port's own whole-frame
 schedule (``extract_features_batched``, K1 + K2), which the JAX package
-pins to the per-level one bit for bit.
+pins to the per-level one bit for bit.  Against the JAX package the
+port's schedule runs on the JAX pyramid's levels, so every level is
+compared; the two pyramids are held together by ``test_torch_pyramid``.
 
 Tolerances are ``parity.py``'s: blur, score, keypoints, levels, scores
 and valid flags bit-equal; on integer-valued images theta within 1 ulp
@@ -74,21 +76,26 @@ def _abs_sums(raw, xy):
                         (p * yg).abs().sum((-2, -1))], -1).numpy()
 
 
-def _agreeing_cameras(imgs, jcfg, cfg):
-    """Per level, the (B,) cameras whose level image is the same in both
-    packages' pyramids.  Level 0 is the input; a resized level may differ
-    by a grey level in rare pixels (``test_torch_pyramid``'s A2 rule),
-    and then that camera's rows of that level are not compared."""
+def _feed_jax_pyramid(monkeypatch, imgs, jcfg, cfg):
+    """Make the port's schedule run on the JAX package's pyramid levels
+    of ``imgs``, so that every row of every level is compared with the
+    JAX schedule's.  (The two pyramids may differ by a grey level in
+    rare pixels of a resized level, ``test_torch_pyramid``'s A2 rule.)
+    Returns the list that counts the calls."""
     jlv = jax.jit(functools.partial(jpyramid.build_pyramid_batched,
                                     cfg=jcfg))(jnp.asarray(imgs))
-    out = []
-    for a, b in zip(jlv, pyramid.build_pyramid_batched(
-            torch.from_numpy(imgs), cfg)):
-        a, b = np.asarray(a), b.numpy()
-        assert np.abs(a - b).max() <= 1.0
-        out.append((a == b).all(axis=(1, 2)))
-    assert out[0].all()
-    return out
+    own = pyramid.build_pyramid_batched(torch.from_numpy(imgs), cfg)
+    for a, b in zip(jlv, own):
+        assert np.abs(np.asarray(a) - b.numpy()).max() <= 1.0
+    assert np.array_equal(np.asarray(jlv[0]), imgs)
+    calls = []
+
+    def levels(images, c):
+        calls.append(images)
+        return [torch.from_numpy(np.array(lv)) for lv in jlv]
+
+    monkeypatch.setattr(pyramid, "build_pyramid_batched", levels)
+    return calls
 
 
 def _rows(ks, lvl):
@@ -96,26 +103,30 @@ def _rows(ks, lvl):
 
 
 @pytest.mark.parametrize("b,shape,n_levels", CASES, ids=IDS)
-def test_per_level_matches_jax_on_integer_images(b, shape, n_levels):
+def test_per_level_matches_jax_on_integer_images(b, shape, n_levels,
+                                                  monkeypatch):
+    """Every row of every level, on the JAX package's pyramid levels;
+    then level 0 (the input itself) through the port's own pyramid."""
     imgs = _imgs(7, b, shape)
     jcfg, cfg = _cfgs(shape, n_levels)
     want = _jax_per_level(imgs, jcfg)
+    own = extract_features_per_level(torch.from_numpy(imgs), cfg)
+    fed = _feed_jax_pyramid(monkeypatch, imgs, jcfg, cfg)
     with ops.launch_audit() as audit:
         got = extract_features_per_level(torch.from_numpy(imgs), cfg)
     assert audit.count == 0               # the CPU runs the plain versions
+    assert len(fed) == 1
     assert tuple(got.desc.shape) == (b, 48, 8)
-    ks = cfg.features_per_level()
-    for lvl, cams in enumerate(_agreeing_cameras(imgs, jcfg, cfg)):
-        rows = _rows(ks, lvl)
-        for name in EXACT:
-            np.testing.assert_array_equal(
-                np_of(getattr(got, name))[cams, rows],
-                np.asarray(getattr(want, name))[cams, rows],
-                err_msg=f"{name} level {lvl}")
-        assert ulp_diff(np.asarray(want.theta)[cams, rows],
-                        np_of(got.theta)[cams, rows]).max(initial=0) <= 1
-        np.testing.assert_array_equal(desc_u32(got.desc)[cams, rows],
-                                      np.asarray(want.desc)[cams, rows])
+    for name in EXACT:
+        np.testing.assert_array_equal(np_of(getattr(got, name)),
+                                      np.asarray(getattr(want, name)),
+                                      err_msg=name)
+    assert ulp_diff(np.asarray(want.theta), np_of(got.theta)).max() <= 1
+    np.testing.assert_array_equal(desc_u32(got.desc), np.asarray(want.desc))
+    rows = _rows(cfg.features_per_level(), 0)
+    for name in own._fields:
+        assert torch.equal(getattr(own, name)[:, rows],
+                           getattr(got, name)[:, rows]), name
     assert int(got.valid.sum()) > 0
 
 
@@ -135,27 +146,27 @@ def test_per_level_matches_jax_on_float_images(monkeypatch):
         calls.append(((raw, smoothed, xy), out))
         return out
 
+    fed = _feed_jax_pyramid(monkeypatch, imgs, jcfg, cfg)
     monkeypatch.setattr(ops, "orient_describe_batched", record)
     got = extract_features_per_level(torch.from_numpy(imgs), cfg)
-    assert len(calls) == n_levels
+    assert len(fed) == 1 and len(calls) == n_levels
     jsparse = jax.jit(functools.partial(jops.orient_describe_batched,
                                         impl="ref"))
     ks = cfg.features_per_level()
-    for lvl, (cams, ((raw, sm, xy), (theta, mom, desc))) in enumerate(
-            zip(_agreeing_cameras(imgs, jcfg, cfg), calls)):
+    for lvl, ((raw, sm, xy), (theta, mom, desc)) in enumerate(calls):
         rows = _rows(ks, lvl)
         assert torch.equal(theta, got.theta[:, rows])
         assert torch.equal(desc, got.desc[:, rows])
         for name in EXACT:
             np.testing.assert_array_equal(
-                np_of(getattr(got, name))[cams, rows],
-                np.asarray(getattr(want, name))[cams, rows],
+                np_of(getattr(got, name))[:, rows],
+                np.asarray(getattr(want, name))[:, rows],
                 err_msg=f"{name} level {lvl}")
         _, jmom, _ = jsparse(*(jnp.asarray(t.numpy()) for t in (raw, sm, xy)))
         assert_sparse_parity(
-            np.asarray(want.theta)[cams, rows], np.asarray(jmom)[cams],
-            np.asarray(want.desc)[cams, rows], theta[cams], mom[cams],
-            desc[cams], _abs_sums(raw, xy)[cams], integer=False)
+            np.asarray(want.theta)[:, rows], np.asarray(jmom),
+            np.asarray(want.desc)[:, rows], theta, mom, desc,
+            _abs_sums(raw, xy), integer=False)
 
 
 @pytest.mark.parametrize("b,shape,n_levels", CASES + [(2, (64, 96), 3)],

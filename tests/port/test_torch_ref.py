@@ -88,3 +88,23 @@ def test_masked_hamming_equal(seed):
                               row_band=2.0, max_disparity=30.0)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert (got.numpy() < hamming_match.BIG).any()
+
+
+@pytest.mark.parametrize("n", [0, 37, 100_003])
+def test_atan2_does_not_depend_on_place(n):
+    """An element's ``ref.atan2`` is the same wherever it lies in the
+    tensor, also in a call larger than torch's one-thread grain (32,768
+    elements, where each thread's share has a tail of its own): the
+    whole call equals the same call shifted by one element and the
+    calls on 1,024-element slices, and ``torch.atan2`` of each element
+    alone to 1 ulp."""
+    rng = np.random.RandomState(n)
+    y = torch.from_numpy(rng.uniform(-1e4, 1e4, n + 1).astype(np.float32))
+    x = torch.from_numpy(rng.uniform(-1e4, 1e4, n + 1).astype(np.float32))
+    whole = ref.atan2(y, x)
+    assert torch.equal(whole[1:], ref.atan2(y[1:], x[1:]))
+    assert torch.equal(whole, torch.cat([
+        ref.atan2(a, b) for a, b in zip(y.split(1024), x.split(1024))]))
+    alone = torch.stack([torch.atan2(a, b) for a, b in zip(y[:50], x[:50])])
+    diff = (whole[:50].view(torch.int32) - alone.view(torch.int32)).abs()
+    assert int(diff.max()) <= 1
