@@ -109,8 +109,31 @@ failure (the script then exits non-zero and prints no result):
       either schedule on the float frame (median of 20, each call
       closed by a synchronize), the device ms of its FE kernels and its
       launches (4 against 2);
-  11. print the kernels' JSON line, then ``{"ok": true, "device": ...}``
-      as the last line.
+  11. the uint8 datapath (``PipelineConfig(precision="uint8")``) at full
+      width, on phase 4's quad frame and phase 6's sequence rounded to
+      uint8: ``process_frame`` exactly 3 launches, each the uint8 variant
+      of K1, K2, K3, with every ``StereoOutput`` field bit-equal to a
+      quantized-f32 session's on the same integer-valued frame;
+      ``extract`` 2, ``match_pair`` 1 (K3) and ``sad_rectify`` 1 (K5) a
+      pair, ``fast.detect`` on the 8 uint8 level images 2 (K11 on the
+      float cast, K8's uint8 variant), ``extract_features_per_level`` 2
+      a level (K6, K7), each equal to the f32 call; the localized
+      sequence 4 launches a frame and ``run`` 3T + 1, poses within 1e-5
+      of the f32 run's and ATE/RPE under phase 6's limits; every input
+      each variant's wrapper received held against its plain version
+      (dense, K3 and K5 bit-equal; K2, K7 and K8 by the rule below,
+      theta within 1 ulp, one library) and against its float kernel on
+      the float copy (bit-equal, theta too: the same ``atan2f`` on the
+      same exact moments); each variant and its float kernel timed on
+      the same inputs (events, ``torch.profiler``, plain version,
+      bound: bytes at each tensor's element size, the variants'
+      integer operations at the int32 rate), the uint8 and f32 frames'
+      latency, median of 20 in turns, and each session's device time by
+      kernel over 5 frames (``torch.profiler``);
+  12. print the kernels' JSON line (the uint8 variants as rows
+      ``<kernel>_u8``, each with its float kernel's ``float_*`` numbers
+      from the same inputs), then ``{"ok": true, "device": ...}`` as the
+      last line.
 
 Tolerances: integer and bool outputs, blur and score are bit-equal.
 theta and the moments are equal on integer-valued frames (every sum is
@@ -158,6 +181,17 @@ import torch.nn.functional as F  # noqa: E402
 # them, beside the card's power limit.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# The int32 rate the uint8 variants' integer instructions run at: 64
+# results a clock per SM for compute capability 9.0 (CUDA C++ Programming
+# Guide, "Arithmetic Instructions" throughput table: 32-bit integer add,
+# multiply-add, compare, min, max and sum of absolute difference), x 132
+# SMs x 1.98 GHz boost clock (H100 SXM data sheet): 16.7e12 a second.
+# One result is one instruction: an IMAD (a multiply and an add), an
+# IADD3 (two adds) or a SAD term |a - b| + c each counts once, whereas
+# the float32 rate counts an FMA as 2 operations.  NVIDIA publishes no
+# rate for the DPX min/max (sm_90); the counts below take it as this
+# rate, which bounds every kernel that runs DPX no faster than IMNMX.
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 REPS = 20
 # gamma_961 = n u / (1 - n u) of a 961-term float32 sum, u = 2**-24.
 GAMMA_961 = 961 * 2.0 ** -24 / (1 - 961 * 2.0 ** -24)
@@ -193,9 +227,12 @@ def time_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, int_ops: float = 0.0):
+    """(ms, "bytes" or "operations"): the larger of ``n_bytes`` at the
+    HBM rate and the operations, ``n_ops`` at the float32 rate plus
+    ``int_ops`` at the int32 rate."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = (n_ops / FP32_OPS_PER_S + int_ops / INT32_OPS_PER_S) * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
 
 
@@ -251,9 +288,25 @@ def footprint(shape_hw, xs, ys, kh: int, kw: int, device) -> int:
 # FAST 16 tap differences + van Herk arc extrema (42 + 42 + 28) + 30
 # running max/min + 2 + threshold 2 (162); separable NMS 4 max + 3 (7).
 DENSE_OPS_PER_PIXEL = 29 + 162 + 7
+# The uint8 variant's, in int32 instructions (one result each at
+# INT32_OPS_PER_S): the blur's 2 x 6 multiply-adds (IMAD or LEA; the
+# first tap is the accumulator) and the quotient by 1296 (IMAD.HI and a
+# shift; the + 648 rides in an IADD3) (14); FAST's 142 two-input
+# extrema at a quarter each, since the DPX three-input min/max on packed
+# s16x2 lanes (the differences lie in [-255, 255]) does four at once,
+# with the 16 tap differences fused into them (DPX add-min/max), then
+# max(bright, -dark), threshold compare and select (4) (39.5); NMS's 4
+# maxima at a quarter and 3 more (4).
+DENSE_INT_OPS_PER_PIXEL = 14 + (142 / 4 + 4) + (4 / 4 + 3)
 # Sparse FE a keypoint: 709 masked pixels x (2 mul + 2 add), atan2
-# (~20), bin (4), 256 compares.
+# (~20), bin (4), 256 compares.  On the uint8 variant the moments are
+# 709 x 2 IMAD and the compares 256 int32 instructions
+# (SPARSE_INT_OPS_PER_KP), and atan2 and the bin float
+# (SPARSE_FLOAT_OPS_PER_U8_KP).
+MOMENT_INT_OPS_PER_KP = 709 * 2
 SPARSE_OPS_PER_KP = 709 * 4 + 20 + 4 + 256
+SPARSE_INT_OPS_PER_KP = MOMENT_INT_OPS_PER_KP + 256
+SPARSE_FLOAT_OPS_PER_U8_KP = 20 + 4
 
 
 def abs_moment_sums(patches: torch.Tensor) -> torch.Tensor:
@@ -352,18 +405,69 @@ def hold_bins(th_k, desc_k, th_p, desc_p, tol, what: str):
 def sparse_bound(pairs):
     """(bound ms, by) of the sparse FE on [(level (B, h, w), keypoints
     (B, K, 2))]: each covered level pixel of the raw and the smoothed
-    image read once, the keypoints read and theta, moments and
-    descriptor written, the steering LUT read; SPARSE_OPS_PER_KP a
-    keypoint."""
+    image read once (at the level's element size), the keypoints read
+    and theta, moments and descriptor written, the steering LUT read;
+    SPARSE_OPS_PER_KP a keypoint at the float32 rate, or on uint8
+    levels SPARSE_INT_OPS_PER_KP at the int32 rate and
+    SPARSE_FLOAT_OPS_PER_U8_KP at the float32 rate."""
     px = n_kp = 0
+    size = 4
     for lv, xy in pairs:
+        size = lv.element_size()
         h, w = lv.shape[1:]
         n_kp += xy.shape[0] * xy.shape[1]
         for cam in range(lv.shape[0]):
             px += footprint((h, w), xy[cam, :, 0].clamp(0, w - 1),
                             xy[cam, :, 1].clamp(0, h - 1), 31, 31, lv.device)
-    return bound_ms(2 * px * 4 + n_kp * (8 + 4 + 44) + 12 * 256 * 2 * 4,
-                    n_kp * SPARSE_OPS_PER_KP)
+    n_bytes = 2 * px * size + n_kp * (8 + 4 + 44) + 12 * 256 * 2 * 4
+    if size == 1:
+        return bound_ms(n_bytes, n_kp * SPARSE_FLOAT_OPS_PER_U8_KP,
+                        n_kp * SPARSE_INT_OPS_PER_KP)
+    return bound_ms(n_bytes, n_kp * SPARSE_OPS_PER_KP)
+
+
+def dense_bound(x, blur, score):
+    """(bound ms, by) of the dense FE on pixels ``x`` with outputs
+    ``blur`` and ``score``: each read or written once at its element
+    size; DENSE_OPS_PER_PIXEL at the float32 rate, or on uint8 pixels
+    DENSE_INT_OPS_PER_PIXEL at the int32 rate."""
+    n = x.numel()
+    n_bytes = n * (x.element_size() + blur.element_size()
+                   + score.element_size())
+    if x.dtype == torch.uint8:
+        return bound_ms(n_bytes, 0, n * DENSE_INT_OPS_PER_PIXEL)
+    return bound_ms(n_bytes, n * DENSE_OPS_PER_PIXEL)
+
+
+def pyramid_pairs(raw, slabs, xy, col):
+    """[(level (B, h, w), its keypoints (B, K_l, 2))] of the sparse FE's
+    whole-frame inputs (flat slabs, slab table, level-sorted keypoints
+    and their column levels)."""
+    b = xy.shape[0]
+    pairs = []
+    for lvl in range(len(slabs.slabs) // b):
+        off, h, w = slabs.slabs[lvl * b]
+        pairs.append((raw[off:off + b * h * w].view(b, h, w),
+                      xy[:, col == lvl]))
+    return pairs
+
+
+def orient_bound(raw, xy):
+    """(bound ms, by) of orientation only on (B, H, W) images and (B, K,
+    2) keypoints: each covered pixel read once at the images' element
+    size, the keypoints read and theta and moments written;
+    ORIENT_OPS_PER_KP a keypoint at the float32 rate, or on uint8 images
+    MOMENT_INT_OPS_PER_KP at the int32 rate and atan2 at the float32
+    rate."""
+    b, h, w = raw.shape
+    px = sum(footprint((h, w), xy[c, :, 0].clamp(0, w - 1),
+                       xy[c, :, 1].clamp(0, h - 1), 31, 31, raw.device)
+             for c in range(b))
+    n_kp = xy.shape[0] * xy.shape[1]
+    n_bytes = px * raw.element_size() + n_kp * (8 + 4 + 8)
+    if raw.dtype == torch.uint8:
+        return bound_ms(n_bytes, n_kp * 20, n_kp * MOMENT_INT_OPS_PER_KP)
+    return bound_ms(n_bytes, n_kp * ORIENT_OPS_PER_KP)
 
 
 def check_dense(levels, cfg, kind: str):
@@ -388,9 +492,7 @@ def check_dense(levels, cfg, kind: str):
         plain_ms=time_ms(lambda: fe.frontend_fused_pyramid_plain(
             flat, slabs, **kw)),
         max_abs_err=err)
-    n = flat.numel()
-    stats["bound_ms"], stats["bound_by"] = bound_ms(
-        n * 4 + 2 * n * 4, n * DENSE_OPS_PER_PIXEL)
+    stats["bound_ms"], stats["bound_by"] = dense_bound(flat, blur_k, score_k)
     return stats
 
 
@@ -463,25 +565,39 @@ def check_matcher(images, cfg, intr, kind: str):
                  plain_ms=time_ms(lambda: mf.match_rectify_fused_plain(
                      *args, **kw)),
                  max_abs_err=err)
+    stats["bound_ms"], stats["bound_by"] = matcher_bound(args, out_k[2], kw)
+    return stats
+
+
+def matcher_bound(args, rxy, kw):
+    """(bound ms, by) of the fused matcher on (desc_l, meta_l, desc_r,
+    meta_r, img_l, img_r) with effective right centers ``rxy``: the
+    descriptors and meta rows read, the pixels the windows and strips
+    cover read once at the images' element size, the outputs written;
+    a banded search (``band_search_ops``) and every SAD term at the
+    float32 rate (3 operations a term), or on uint8 images at the int32
+    rate (one SAD instruction a term)."""
+    images = args[4]
     p, k = args[1].shape[0], args[1].shape[1]
     m = args[3].shape[1]
     h, w = images.shape[1:]
+    win, rng = kw["sad_window"], kw["sad_range"]
     px = 0
     for q in range(p):
         xl = torch.round(args[1][q, :, 0]).clamp(0, w - 1)
         yl = torch.round(args[1][q, :, 1]).clamp(0, h - 1)
-        xr = torch.round(out_k[2][q, :, 0]).clamp(0, w - 1)
-        yr = torch.round(out_k[2][q, :, 1]).clamp(0, h - 1)
-        px += footprint((h, w), xl, yl, cfg.sad_window, cfg.sad_window,
-                        images.device)
-        px += footprint((h, w), xr, yr, cfg.sad_window,
-                        cfg.sad_window + 2 * cfg.sad_range, images.device)
-    sweep = 2 * cfg.sad_range + 1
-    n_bytes = p * (k + m) * (32 + 16) + px * 4 + p * k * 20
-    n_ops = (band_search_ops(args[1], args[3], **kw)
-             + p * k * sweep * cfg.sad_window ** 2 * 3)
-    stats["bound_ms"], stats["bound_by"] = bound_ms(n_bytes, n_ops)
-    return stats
+        xr = torch.round(rxy[q, :, 0]).clamp(0, w - 1)
+        yr = torch.round(rxy[q, :, 1]).clamp(0, h - 1)
+        px += footprint((h, w), xl, yl, win, win, images.device)
+        px += footprint((h, w), xr, yr, win, win + 2 * rng, images.device)
+    sweep = 2 * rng + 1
+    n_bytes = (p * (k + m) * (32 + 16) + px * images.element_size()
+               + p * k * 20)
+    search = band_search_ops(args[1], args[3], **kw)
+    terms = p * k * sweep * win ** 2
+    if images.dtype == torch.uint8:
+        return bound_ms(n_bytes, 0, search + terms)
+    return bound_ms(n_bytes, search + terms * 3)
 
 
 def profiled_ms(fn, symbols, reps: int = REPS) -> list:
@@ -547,8 +663,8 @@ def check_sad_only(args, kw, kind: str):
     (bit-equal SAD table), timed; the bound counts the pixels the
     windows and strips cover and every SAD term."""
     from repro_torch.kernels import sad_fused as so
-    img_l, _, xy_l, xy_r = args
-    win, rng = kw["sad_window"], kw["sad_range"]
+    _, _, xy_l, _ = args
+    rng = kw["sad_range"]
     tab_k = so.sad_fused_cuda(*args, **kw)
     tab_p = so.sad_fused_plain(*args, **kw)
     torch.cuda.synchronize()
@@ -564,6 +680,24 @@ def check_sad_only(args, kw, kind: str):
                                      "sad_only_kernel"),
                  plain_ms=time_ms(lambda: so.sad_fused_plain(*args, **kw)),
                  max_abs_err=err)
+    stats["bound_ms"], stats["bound_by"] = sad_bound(args, kw)
+    log(f"[SAD-only/{kind}] {stats['ms']:.4f} ms event, device "
+        f"{stats['device_ms']} ms, bound {stats['bound_ms']:.6f} ms "
+        f"({stats['bound_by']}), plain {stats['plain_ms']:.4f} ms, library "
+        "call: none")
+    return stats
+
+
+def sad_bound(args, kw):
+    """(bound ms, by) of the SAD-only matcher on (img_l, img_r, xy_l,
+    xy_r): the pixels the windows and strips cover read once at the
+    images' element size, the centers read and the table written; every
+    SAD term at the float32 rate (3 operations), or on uint8 images at
+    the int32 rate (one SAD instruction)."""
+    img_l, _, xy_l, xy_r = args
+    win, rng = kw["sad_window"], kw["sad_range"]
+    p, k = xy_l.shape[0], xy_l.shape[1]
+    sweep = 2 * rng + 1
     h, w = img_l.shape[1:]
     px = 0
     for q in range(p):
@@ -571,14 +705,11 @@ def check_sad_only(args, kw, kind: str):
             xs = torch.round(xy[:, 0]).clamp(0, w - 1)
             ys = torch.round(xy[:, 1]).clamp(0, h - 1)
             px += footprint((h, w), xs, ys, win, width, img_l.device)
-    stats["bound_ms"], stats["bound_by"] = bound_ms(
-        px * 4 + p * k * 16 + p * k * sweep * 4,
-        p * k * sweep * win ** 2 * 3)
-    log(f"[SAD-only/{kind}] {stats['ms']:.4f} ms event, device "
-        f"{stats['device_ms']} ms, bound {stats['bound_ms']:.6f} ms "
-        f"({stats['bound_by']}), plain {stats['plain_ms']:.4f} ms, library "
-        "call: none")
-    return stats
+    n_bytes = px * img_l.element_size() + p * k * 16 + p * k * sweep * 4
+    terms = p * k * sweep * win ** 2
+    if img_l.dtype == torch.uint8:
+        return bound_ms(n_bytes, 0, terms)
+    return bound_ms(n_bytes, terms * 3)
 
 
 def stage_times(vs, images, reps: int = REPS):
@@ -702,12 +833,19 @@ def stacked(calls):
 def reset_counts() -> None:
     from repro_torch.kernels import ops
     for k in ops.KERNELS.values():
-        k.launches = 0
+        k.reset()
 
 
 def read_counts() -> dict:
     from repro_torch.kernels import ops
     return {name: k.launches for name, k in ops.KERNELS.items()}
+
+
+def read_u8_counts() -> dict:
+    """The launches of each kernel's uint8 variant, where it has one."""
+    from repro_torch.kernels import ops
+    return {name: k.variant_launches.get("u8", 0)
+            for name, k in ops.KERNELS.items()}
 
 
 def check_metrics(pose, poses, limits, what: str) -> dict:
@@ -946,27 +1084,25 @@ def single_image_phase(frame, cfg, dev):
         lib_ms = time_ms(conv_blur)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
-    xc = xy[..., 0].clamp(0, w - 1).reshape(-1)
-    yc = xy[..., 1].clamp(0, h - 1).reshape(-1)
-    n_kp = xy.shape[0] * xy.shape[1]
-    px = footprint((h, w), xc, yc, 31, 31, dev)
-    for name, fn, plain, symbol, nbytes, nops, lib in (
+    for name, fn, plain, symbol, bound, lib in (
             ("fast_score_map", lambda: fd.fast_score_map_cuda(x, thr_in),
              lambda: fast_score_plain(x, thr_in), "fast_kernel",
-             2 * n * 4, n * FAST_OPS_PER_PIXEL, None),
+             bound_ms(n * 2 * x.element_size(), n * FAST_OPS_PER_PIXEL),
+             None),
             ("gaussian_blur7", lambda: gb.gaussian_blur7_cuda(x, True),
-             lambda: blur_plain(x, True), "blur_kernel", 2 * n * 4,
-             n * BLUR_OPS_PER_PIXEL, lib_ms),
+             lambda: blur_plain(x, True), "blur_kernel",
+             bound_ms(n * 2 * x.element_size(), n * BLUR_OPS_PER_PIXEL),
+             lib_ms),
             ("orient_fused", lambda: de.orient_fused_cuda(raw, xy),
              lambda: de.orient_fused_plain(raw, xy), "orient_kernel",
-             px * 4 + n_kp * (8 + 4 + 8), n_kp * ORIENT_OPS_PER_KP, None)):
+             orient_bound(raw, xy), None)):
         got, want = fn(), plain()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         err = max(float((a - b).abs().max()) for a, b in zip(got, want))
         st = dict(ms=time_ms(fn), device_ms=device_ms(fn, symbol),
                   plain_ms=time_ms(plain), max_abs_err=err, library_ms=lib)
-        st["bound_ms"], st["bound_by"] = bound_ms(nbytes, nops)
+        st["bound_ms"], st["bound_by"] = bound
         stats[name] = st
         log(f"[{name} 720p] {st['ms']:.4f} ms event, device "
             f"{st['device_ms']} ms, bound {st['bound_ms']:.6f} ms "
@@ -1107,7 +1243,8 @@ def localized_phase(cfg, dev):
     log(f"[localized frame] solve share {med['solve'] / frame_ms:.4f}; "
         f"synchronizing calls (torch.cuda sync debug mode): {syncs}")
     return (vs, frames, loop_counts, k4_loop[-1][:2], k4_run[0][:2],
-            dict(frame_ms=frame_ms, stages=med, metrics=m, host_syncs=syncs))
+            dict(frame_ms=frame_ms, stages=med, metrics=m, host_syncs=syncs),
+            seq.poses)
 
 
 def host_syncs(fn) -> int:
@@ -1294,7 +1431,8 @@ def unfused_phase(card, frame0, images, intr, out4):
              band_search_ops(args9[1], args9[3], **kw9), err9),
             ("sad_search", lambda: sr.sad_search_cuda(*args10),
              lambda: sr.sad_search_plain(*args10), "sad_search_kernel",
-             (args10[0].numel() + args10[1].numel()) * 4 + kp * sweep * 4,
+             (args10[0].numel() + args10[1].numel())
+             * args10[0].element_size() + kp * sweep * 4,
              kp * sweep * p * p * 3, err10)):
         st = dict(ms=time_ms(fn), device_ms=device_ms(fn, symbol),
                   plain_ms=time_ms(plain), max_abs_err=err)
@@ -1415,18 +1553,17 @@ def per_level_phase(frame, cfg, dev):
     for name, calls, cuda, plain, symbol, err, bound in (
             ("frontend_fused", f6, fe.frontend_fused_cuda,
              fe.frontend_fused_plain, "frontend_level_kernel", err6,
-             lambda args: bound_ms(args[0].numel() * 12,
-                                   args[0].numel() * DENSE_OPS_PER_PIXEL)),
+             lambda args, out: dense_bound(args[0], *out)),
             ("describe_fused", f7, de.describe_fused_cuda,
              de.describe_fused_plain, "describe_level_kernel", err7,
-             lambda args: sparse_bound([(args[0], args[2])]))):
+             lambda args, out: sparse_bound([(args[0], args[2])]))):
         per = []
-        for args, kw, _ in calls:
+        for args, kw, out in calls:
             per.append(dict(
                 ms=time_ms(lambda: cuda(*args, **kw)),
                 device_ms=device_ms(lambda: cuda(*args, **kw), symbol),
                 plain_ms=time_ms(lambda: plain(*args, **kw)),
-                bound=bound(args)))
+                bound=bound(args, out)))
         st = dict(per[0], max_abs_err=err, bound_ms=per[0]["bound"][0],
                   bound_by=per[0]["bound"][1])
         del st["bound"]
@@ -1508,6 +1645,296 @@ def small_sequence_phase():
     check_metrics(rc.pose, seq.poses, SMALL_LIMITS, "small sequence, CPU")
     entry_points(card, cpu, cpu, frames[0], frames[1], rig.pairs[:1],
                  "96x128")
+
+
+
+
+def counted_u8(fn, want: dict, want_u8: dict, what: str, total: dict):
+    """``counted``, and the launches of the uint8 variants exactly
+    ``want_u8`` ({kernel: count}), which are added to ``total``.
+    Returns the output."""
+    out, _ = counted(fn, want, what)
+    got = {n: c for n, c in read_u8_counts().items() if c}
+    if got != want_u8:
+        raise AssertionError(f"{what}: uint8 variant launches {got}, "
+                             f"expected {want_u8}")
+    for n, c in got.items():
+        total[n] += c
+    return out
+
+
+def uint8_phase(frame, intr, seq_rig, seq_frames, seq_poses, cfg, dev):
+    """The uint8 datapath at full width (phase 11), on phase 4's quad
+    frame (``intr`` its intrinsics) and phase 6's sequence (on its rig
+    ``seq_rig``), rounded to uint8.  Each entry point
+    runs with every count set to 0 just before it and read just after,
+    and launches its kernels' uint8 variants: ``process_frame`` 3 (K1,
+    K2, K3), ``extract`` 2, ``match_pair`` 1 (K3), ``sad_rectify`` 1
+    (K5), ``fast.detect`` on each of the 8 uint8 level images 2 (K11,
+    float, and K8), ``extract_features_per_level`` 2 a level (K6, K7), a
+    localized frame 4 (K4 unchanged) and a localized ``run`` 3T + 1.
+    Each output is bit-equal to the quantized-f32 session's (or call's)
+    on the same integer-valued frame; the localized run's poses equal
+    the f32 run's within 1e-5 and pass phase 6's ATE/RPE limits.  Every
+    input a variant's wrapper received is held against its plain version
+    (dense, K3, K5 bit-equal; K2, K7, K8 by the sparse rule with theta
+    within 1 ulp, one library) and against its float kernel on the
+    float copy (bit-equal, theta too).  Then each variant and its float
+    kernel are timed on the same inputs (events, ``torch.profiler``,
+    plain version, bound), the uint8 and f32 frames' latency in turns,
+    and each session's device time by kernel over 5 frames.  Returns (the uint8 launches of each kernel summed over the
+    counted calls, the timing rows, the latencies)."""
+    from repro_torch.core import (PipelineConfig, RigConfig, VisualSystem,
+                                  fast, pyramid)
+    from repro_torch.core.orb import (extract_features_batched,
+                                      extract_features_per_level)
+    from repro_torch.core.types import map_fields
+    from repro_torch.kernels import describe_fused as de
+    from repro_torch.kernels import frontend_fused as fe
+    from repro_torch.kernels import matcher_fused as mf
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sad_fused as so
+    rig = RigConfig.quad(intr)
+    f32 = VisualSystem(rig, PipelineConfig(orb=cfg), device="cuda")
+    u8 = VisualSystem(rig, PipelineConfig(orb=cfg, precision="uint8"),
+                      device="cuda")
+    img_u8 = torch.from_numpy(np.clip(np.round(frame), 0, 255)
+                              .astype(np.uint8)).to(dev)
+    img_f = img_u8.float()
+    total = dict.fromkeys(ops.KERNELS, 0)
+    frame_k = {n: 1 for n in ops.FRAME_KERNELS}
+    with recorded(fe, "frontend_fused_pyramid") as r1, \
+            recorded(de, "describe_fused_pyramid") as r2, \
+            recorded(mf, "match_rectify_fused") as r3:
+        out = counted_u8(lambda: u8.process_frame(img_u8), frame_k,
+                         frame_k, "uint8 process_frame", total)
+    equal_fields(out, f32.process_frame(img_f),
+                 "uint8 process_frame vs the f32 session")
+    for t in (out.features_l.theta, out.depth.depth, out.depth.disparity):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError("uint8 process_frame: non-finite output")
+    nd = out.depth.valid.sum(-1).tolist()
+    if min(nd) < 1:
+        raise AssertionError("uint8 process_frame: a pair has no depth")
+    log(f"[uint8 frame] 3 launches, each a uint8 variant (K1, K2, K3); "
+        "every StereoOutput field bit-equal to the f32 session's on the "
+        f"same integer-valued frame; depths per pair {nd}")
+
+    two = {"frontend_fused_pyramid": 1, "describe_fused_pyramid": 1}
+    feats = counted_u8(lambda: u8.extract(img_u8), two, two,
+                       "uint8 extract", total)
+    equal_fields(feats, f32.extract(img_f), "uint8 extract vs f32")
+    one3 = {"match_rectify_fused": 1}
+    one5 = {"sad_fused": 1}
+    r5 = []
+    for cl, cr in rig.pairs:
+        fl, fr = (map_fields(lambda x: x[c], feats) for c in (cl, cr))
+        got = counted_u8(lambda: u8.match_pair(img_u8[cl], img_u8[cr],
+                                               fl, fr),
+                         one3, one3, "uint8 match_pair", total)
+        equal_fields(got, f32.match_pair(img_f[cl], img_f[cr], fl, fr),
+                     "uint8 match_pair vs f32")
+        m = u8.stereo_match(fl, fr)
+        with recorded(so) as rec:
+            got = counted_u8(lambda: u8.sad_rectify(
+                img_u8[cl], img_u8[cr], fl, fr, m), one5, one5,
+                "uint8 sad_rectify", total)
+        r5 += rec
+        equal_fields(got, f32.sad_rectify(img_f[cl], img_f[cr], fl, fr, m),
+                     "uint8 sad_rectify vs f32")
+    log("[uint8 entry points] extract 2 launches (K1, K2), match_pair 1 "
+        "(K3) and sad_rectify 1 (K5) a pair, each its uint8 variant, "
+        "equal to the f32 session's")
+
+    # fast.detect (K11 on the float cast, K8's uint8 variant) on the 8
+    # uint8 level images; equal to the float level's call
+    levels = pyramid.build_pyramid_batched(img_u8, cfg, precision="uint8")
+    ks = cfg.features_per_level()
+    r8 = []
+    for lvl, (lv, k) in enumerate(zip(levels, ks)):
+        for cam in range(lv.shape[0]):
+            img = lv[cam]
+            with recorded(de, "orient_fused") as rec:
+                got = counted_u8(
+                    lambda: fast.detect(img, cfg, k),
+                    {"fast_score_map": 1, "orient_fused": 1},
+                    {"orient_fused": 1}, "uint8 fast.detect", total)
+            r8 += rec
+            equal_fields(got, fast.detect(img.float(), cfg, k),
+                         f"uint8 fast.detect level {lvl} camera {cam}")
+    log("[uint8 detect] 8 level images: fast.detect 2 launches (K11, K8's "
+        "uint8 variant), equal to the float level's (xy, score, theta, "
+        "valid)")
+
+    n_lv = cfg.n_levels
+    per_k = {"frontend_fused": n_lv, "describe_fused": n_lv}
+    with recorded(fe) as r6, recorded(de) as r7:
+        per = counted_u8(
+            lambda: extract_features_per_level(img_u8, cfg,
+                                               precision="uint8"),
+            per_k, per_k, "uint8 extract_features_per_level", total)
+    whole = extract_features_batched(img_u8, cfg, precision="uint8")
+    equal_fields(per, whole, "uint8 per-level vs whole frame")
+    equal_fields(per, extract_features_batched(img_f, cfg),
+                 "uint8 per-level vs the f32 whole frame")
+    log(f"[uint8 per-level] {n_lv} + {n_lv} launches (K6, K7 uint8 "
+        "variants), FeatureSet bit-equal to extract_features_batched "
+        "(uint8 and f32)")
+
+    # the localized sequence
+    seq_u8 = torch.round(seq_frames).clamp(0, 255).to(torch.uint8)
+    pipe = PipelineConfig(orb=cfg, localize=True)
+    loc_f = VisualSystem(seq_rig, pipe, device="cuda")
+    loc_u8 = VisualSystem(seq_rig,
+                          dataclasses.replace(pipe, precision="uint8"),
+                          device="cuda")
+    t_seq = seq_u8.shape[0]
+    loop = counted_u8(
+        lambda: [loc_u8.process_frame(seq_u8[t]) for t in range(t_seq)],
+        {n: t_seq for n in LOC_KERNELS},
+        {n: t_seq for n in ops.FRAME_KERNELS}, "uint8 localized frames",
+        total)
+    run = counted_u8(
+        lambda: loc_u8.run(seq_u8),
+        {**{n: t_seq for n in ops.FRAME_KERNELS}, "match_fused": 1},
+        {n: t_seq for n in ops.FRAME_KERNELS}, "uint8 localized run", total)
+    run_f = loc_f.run(seq_u8.float())
+    equal_fields(run.stereo, run_f.stereo, "uint8 run vs f32 run")
+    err_f = close_poses(run.pose, run_f.pose, 1e-5, "uint8 run vs f32 run")
+    loop_pose = type(run.pose)(*[torch.stack(x) for x in zip(
+        *[o.pose for o in loop])])
+    err_l = close_poses(run.pose, loop_pose, 1e-5,
+                        "uint8 run vs its frame loop")
+    m = check_metrics(run.pose, seq_poses, LOC_LIMITS,
+                      "uint8 localized run 720p")
+    log(f"[uint8 localized] 4 launches a frame, run 3T + 1; poses within "
+        f"{err_f:.3e} of the f32 run and {err_l:.3e} of the frame loop")
+
+    # every input a variant received: against its plain version, and
+    # against its float kernel on the float copy
+    def as_float(args, idx):
+        return tuple(a.float() if i in idx else a for i, a in enumerate(args))
+
+    table = {
+        "frontend_fused_pyramid": (r1, fe.frontend_fused_pyramid_cuda,
+                                   fe.frontend_fused_pyramid_plain, (0,),
+                                   "frontend_kernel"),
+        "describe_fused_pyramid": (r2, de.describe_fused_pyramid_cuda,
+                                   de.describe_fused_pyramid_plain, (0, 1),
+                                   "describe_kernel"),
+        "match_rectify_fused": (r3, mf.match_rectify_fused_cuda,
+                                mf.match_rectify_fused_plain, (4, 5),
+                                "match_kernel"),
+        "sad_fused": (r5, so.sad_fused_cuda, so.sad_fused_plain, (0, 1),
+                      "sad_only_kernel"),
+        "frontend_fused": (r6, fe.frontend_fused_cuda,
+                           fe.frontend_fused_plain, (0,),
+                           "frontend_level_kernel"),
+        "describe_fused": (r7, de.describe_fused_cuda,
+                           de.describe_fused_plain, (0, 1),
+                           "describe_level_kernel"),
+        "orient_fused": (r8, de.orient_fused_cuda, de.orient_fused_plain,
+                         (0,), "orient_kernel"),
+    }
+    sparse = ("describe_fused_pyramid", "describe_fused", "orient_fused")
+    errs = {}
+    for name, (calls, cuda, plain, idx, _) in table.items():
+        err = 0.0
+        for args, kw, got in calls:
+            want = plain(*args, **kw)
+            flt = cuda(*as_float(args, idx), **kw)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            flt = flt if isinstance(flt, tuple) else (flt,)
+            what = f"{name} uint8 variant vs plain"
+            if name == "orient_fused":
+                hold_theta(got[0], got[1], want[0], want[1], None, True,
+                           what)
+            elif name in sparse:
+                hold_sparse(got, want, None, True, what)
+            if name in sparse:
+                err = max(err, float((got[0] - want[0]).abs().max()),
+                          float((got[1] - want[1]).abs().max()))
+            else:
+                for a, b in zip(got, want):
+                    equal_or_raise(a, b, what)
+            for a, b in zip(got, flt):
+                equal_or_raise(a.to(b.dtype), b,
+                               f"{name} uint8 variant vs the float kernel")
+        errs[name] = err
+        log(f"[uint8 {name}] {len(calls)} inputs: == plain"
+            + (" (moments equal, theta within 1 ulp, descriptors by the "
+               "bins)" if name in sparse else "")
+            + ", == the float kernel on the float copy (bit-equal)")
+
+    # timings: each variant and its float kernel on the same inputs
+    first = {name: (stacked(calls) if name == "sad_fused" else calls[0][:2])
+             for name, (calls, *_rest) in table.items()}
+
+    def bound_of(name, args, kw, out):
+        if name in ("frontend_fused_pyramid", "frontend_fused"):
+            return dense_bound(args[0], *out)
+        if name == "describe_fused_pyramid":
+            return sparse_bound(pyramid_pairs(args[0], args[2], args[3],
+                                              args[4]))
+        if name == "describe_fused":
+            return sparse_bound([(args[0], args[2])])
+        if name == "orient_fused":
+            return orient_bound(args[0], args[1])
+        if name == "match_rectify_fused":
+            return matcher_bound(args, out[2], kw)
+        return sad_bound(args, kw)
+
+    stats = {}
+    for name, (calls, cuda, plain, idx, symbol) in table.items():
+        args, kw = first[name]
+        fargs = as_float(args, idx)
+        st = {}
+        for key, a in (("", args), ("float_", fargs)):
+            out = cuda(*a, **kw)
+            out = out if isinstance(out, tuple) else (out,)
+            st[f"{key}ms"] = time_ms(lambda: cuda(*a, **kw))
+            st[f"{key}device_ms"] = device_ms(lambda: cuda(*a, **kw), symbol)
+            st[f"{key}plain_ms"] = time_ms(lambda: plain(*a, **kw))
+            st[f"{key}bound_ms"], st[f"{key}bound_by"] = bound_of(
+                name, a, kw, out)
+        st["max_abs_err"] = float(errs[name])
+        stats[name] = st
+        log(f"[uint8 {name}] {st['ms']:.4f} ms event, device "
+            f"{st['device_ms']} ms, bound {st['bound_ms']:.6f} ms "
+            f"({st['bound_by']}), plain {st['plain_ms']:.4f} ms; float "
+            f"kernel on the same values: {st['float_ms']:.4f} ms event, "
+            f"device {st['float_device_ms']} ms, bound "
+            f"{st['float_bound_ms']:.6f} ms ({st['float_bound_by']}), plain "
+            f"{st['float_plain_ms']:.4f} ms")
+
+    # frame latency, the uint8 and the f32 session in turns
+    lat = {"f32": [], "uint8": []}
+    turns = (("f32", f32, img_f), ("uint8", u8, img_u8))
+    for _, vs, img in turns:
+        for _ in range(3):
+            vs.process_frame(img)
+    for _ in range(REPS):
+        for name, vs, img in turns:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vs.process_frame(img)
+            torch.cuda.synchronize()
+            lat[name].append((time.perf_counter() - t0) * 1e3)
+    latency = {f"{k}_frame_ms_median": statistics.median(v)
+               for k, v in lat.items()}
+    for name, vs, img in turns:
+        log(f"[uint8 vs f32 frame] the {name} session's device profile:")
+        prof = profile_frames(vs, img)
+        latency[f"{name}_device_busy_ms"] = (sum(prof.values()) if prof
+                                             else None)
+    latency["localized_metrics"] = m
+    log(f"[uint8 vs f32 frame] latency median of {REPS} in turns: uint8 "
+        f"{latency['uint8_frame_ms_median']:.4f} ms, f32 "
+        f"{latency['f32_frame_ms_median']:.4f} ms; device busy a frame: "
+        f"uint8 {latency['uint8_device_busy_ms']}, f32 "
+        f"{latency['f32_device_busy_ms']} ms")
+    return total, stats, latency
 
 
 def main() -> int:
@@ -1651,7 +2078,7 @@ def main() -> int:
 
     # 6. the localized path at full width, and K4 on the inputs it
     #    received there
-    vs_loc, seq_frames, loop_counts, k4_frame, k4_run, loc = (
+    vs_loc, seq_frames, loop_counts, k4_frame, k4_run, loc, seq_poses = (
         localized_phase(cfg, dev))
     mo_frame = check_match_only(*k4_frame, "temporal, localized frame 720p")
     mo_run = check_match_only(*k4_run, f"temporal, run 720p T={SEQ_T}")
@@ -1677,7 +2104,12 @@ def main() -> int:
     per_level_counts, per_level_stats, schedules = per_level_phase(
         frame, cfg, dev)
 
-    # 11. result lines
+    # 11. the uint8 datapath (the uint8 variants of K1-K3, K5-K8) at full
+    #     width
+    u8_counts, u8_stats, u8_latency = uint8_phase(
+        frame, intr, vs_loc.rig, seq_frames, seq_poses, cfg, dev)
+
+    # 12. result lines
     kernels = []
     meta = {
         "frontend_fused_pyramid": (
@@ -1762,6 +2194,22 @@ def main() -> int:
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
             "bound_by": st["bound_by"], "library_ms": st["library_ms"],
             "profiled_device_ms": st["device_ms"]})
+    # the uint8 variants, each beside its float kernel on the same values
+    by_name = {k["name"]: k for k in kernels}
+    for name in [n for n, k in ops.KERNELS.items() if "u8" in k.variants]:
+        st = u8_stats[name]
+        if u8_counts[name] < 1:
+            raise AssertionError(f"{name}'s uint8 variant was not launched "
+                                 "on its path")
+        kernels.append({
+            "name": f"{name}_u8", "route": "cuda",
+            "source": by_name[name]["source"],
+            "replaces": by_name[name]["replaces"],
+            "launches": u8_counts[name], "max_abs_err": st["max_abs_err"],
+            "ms": st["ms"], "plain_ms": st["plain_ms"],
+            "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
+            "library_ms": None, "profiled_device_ms": st["device_ms"],
+            **{k: v for k, v in st.items() if k.startswith("float_")}})
     print(json.dumps({"kernels": kernels,
                       "module_split_ms": module_split,
                       "frame_ms_median": statistics.median(frame_ms),
@@ -1769,7 +2217,8 @@ def main() -> int:
                       "localized_stage_ms": loc["stages"],
                       "localized_metrics": loc["metrics"],
                       "localized_host_syncs": loc["host_syncs"],
-                      "per_level_vs_whole_frame": schedules}))
+                      "per_level_vs_whole_frame": schedules,
+                      "uint8_vs_f32_frame": u8_latency}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind_name,
         "count": torch.cuda.device_count()}}), flush=True)

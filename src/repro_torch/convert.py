@@ -1,7 +1,8 @@
 """Carry a JAX-package configuration across to the port.
 
 The system has no learned weights: what crosses from the JAX package is
-its configuration (``ORBConfig``, ``RigConfig``, ``CameraIntrinsics``),
+its configuration (``ORBConfig``, ``RigConfig``, ``CameraIntrinsics``,
+``PipelineConfig``),
 its ROM, the descriptor steering LUT, and the localization backend's
 cross-frame state.  The functions below take plain Python and numpy —
 ``dataclasses.asdict(...)`` of the JAX configs, ``._asdict()`` of a JAX
@@ -14,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.pipeline import PipelineConfig
 from repro_torch.core.rig import RigConfig
 from repro_torch.core.sync import TriggerConfig
 from repro_torch.core.types import (CameraIntrinsics, LocalizationState,
@@ -41,6 +43,22 @@ def rig_config_from_reference(d: dict) -> RigConfig:
         d["sync"] = TriggerConfig(**d["sync"])
     d["pairs"] = tuple(tuple(p) for p in d["pairs"])
     return RigConfig(**d)
+
+
+def pipeline_config_from_reference(d: dict) -> PipelineConfig:
+    """``PipelineConfig`` from ``dataclasses.asdict`` of the JAX one (its
+    nested ``ORBConfig`` arrives as a dict), precision included.  The JAX
+    package's ``impl`` (its kernel-implementation switch) has no
+    counterpart here: the tensors' device picks the implementation.  Its
+    ``rig_shard_axis`` (the fleet's device mesh, ROADMAP A5) is not
+    ported: a set one raises."""
+    d = dict(d)
+    d.pop("impl", None)
+    if d.pop("rig_shard_axis", None) is not None:
+        raise NotImplementedError(
+            "rig_shard_axis is not ported yet (ROADMAP A5)")
+    d["orb"] = orb_config_from_reference(d["orb"])
+    return PipelineConfig(**d)
 
 
 def localization_state_from_reference(d: dict) -> LocalizationState:

@@ -20,8 +20,9 @@ from repro_torch.kernels.ref import nms3
 
 
 def select_topk(score: torch.Tensor, k: int, border: int):
-    """Top-K corners of (B, H, W) score maps.  Returns (xy (B, K, 2)
-    int32, score (B, K), valid (B, K) bool).
+    """Top-K corners of (B, H, W) score maps (float32, or int16 on the
+    uint8 datapath).  Returns (xy (B, K, 2) int32, score (B, K) of the
+    map's dtype, valid (B, K) bool).
 
     Ties go to the lowest flat index, as ``lax.top_k`` breaks them: a
     stable descending sort, not ``torch.topk`` (NMS'd scores and zero
@@ -42,16 +43,19 @@ def select_topk(score: torch.Tensor, k: int, border: int):
 
 def orientations(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     """Intensity-centroid orientation theta = atan2(m01, m10) (paper
-    Eq. 1) of (K, 2) int keypoints of one (H, W) float image, clamped
-    into it: the batch-of-one view of the orientation-only kernel, ONE
-    launch."""
+    Eq. 1) of (K, 2) int keypoints of one (H, W) image, clamped into
+    it: the batch-of-one view of the orientation-only kernel, ONE
+    launch (its uint8 variant, with int32 moments, for a uint8 image)."""
     theta, _, _ = ops.orient_describe_batched(img[None], None, xy[None])
     return theta[0]
 
 
 def detect(level_img: torch.Tensor, cfg: ORBConfig, k: int):
-    """Oriented FAST on one pyramid level, in 2 launches.  Returns (xy
-    (K, 2) int32 level coords, score (K,), theta (K,), valid (K,))."""
+    """Oriented FAST on one pyramid level, in 2 launches: the FAST score
+    map (K11, on the level cast to float32 as the JAX package casts it)
+    and orientation (K8, its uint8 variant for a uint8 level).  Returns
+    (xy (K, 2) int32 level coords, score (K,), theta (K,), valid
+    (K,))."""
     score = ops.fast_score_map(level_img, float(cfg.fast_threshold))
     if cfg.nms:
         score = nms3(score)

@@ -16,6 +16,12 @@ levels, so a caller (or a test) can feed its own pyramid;
 package keeps as its oracle (port of ``repro.core.orb.
 extract_features_per_level``): the same three steps one level at a
 time, 2 launches a level (K6, K7).
+
+``precision="uint8"`` is the paper's 8-bit datapath: uint8 pyramid
+levels, and the kernels' uint8 variants (int32 accumulators, a uint8
+blur, int16 scores, int32 moments) in the same launches.  The FeatureSet
+dtypes do not change (int16 scores are cast to float32 losslessly), and
+on an integer-valued frame every field equals the float32 path's.
 """
 
 from __future__ import annotations
@@ -39,6 +45,8 @@ def _level_features(lvl: int, cfg: ORBConfig, xy, vals, valid,
     return FeatureSet(
         xy=xy.float() * scale,
         level=torch.full((b, k_l), lvl, dtype=torch.int32, device=xy.device),
+        # int16 scores (the uint8 datapath) cast losslessly: FAST scores
+        # lie in [0, 255].  FeatureSet dtypes never change.
         score=vals.float(),
         theta=theta,
         desc=desc,
@@ -48,7 +56,8 @@ def _level_features(lvl: int, cfg: ORBConfig, xy, vals, valid,
 
 def features_from_levels(levels, cfg: ORBConfig) -> FeatureSet:
     """Dense FE, top-K and sparse FE on given (B, h_l, w_l) pyramid
-    levels -> FeatureSet with a leading (B,) axis on every field."""
+    levels (float32, or uint8: the 8-bit datapath) -> FeatureSet with a
+    leading (B,) axis on every field."""
     ks = cfg.features_per_level()
     dense = ops.fast_blur_nms_pyramid(
         levels, float(cfg.fast_threshold), nms=cfg.nms,
@@ -63,21 +72,22 @@ def features_from_levels(levels, cfg: ORBConfig) -> FeatureSet:
             zip(topk, sparse))])
 
 
-def extract_features_batched(images: torch.Tensor,
-                             cfg: ORBConfig) -> FeatureSet:
-    """images: (B, H, W) float in [0, 255] — B cameras — to a FeatureSet
-    of K features per camera, in exactly 2 kernel launches."""
+def extract_features_batched(images: torch.Tensor, cfg: ORBConfig, *,
+                             precision: str = "f32") -> FeatureSet:
+    """images: (B, H, W) uint8/float in [0, 255] — B cameras — to a
+    FeatureSet of K features per camera, in exactly 2 kernel launches,
+    on the ``precision`` datapath ("f32" or "uint8")."""
     return features_from_levels(
-        pyramid.build_pyramid_batched(images, cfg), cfg)
+        pyramid.build_pyramid_batched(images, cfg, precision=precision), cfg)
 
 
 def extract_features(image: torch.Tensor, cfg: ORBConfig, *,
                      precision: str = "f32") -> FeatureSet:
-    """image: (H, W) float in [0, 255] -> FeatureSet of K features, the
-    batch-of-one view of ``extract_features_batched`` (2 launches)."""
-    pyramid.check_precision(precision)
-    return map_fields(lambda x: x[0], extract_features_batched(image[None],
-                                                               cfg))
+    """image: (H, W) uint8/float in [0, 255] -> FeatureSet of K
+    features, the batch-of-one view of ``extract_features_batched`` (2
+    launches)."""
+    return map_fields(lambda x: x[0], extract_features_batched(
+        image[None], cfg, precision=precision))
 
 
 def extract_features_per_level(images: torch.Tensor, cfg: ORBConfig, *,
@@ -86,8 +96,7 @@ def extract_features_per_level(images: torch.Tensor, cfg: ORBConfig, *,
     K6, then top-K, then the sparse FE, K7).  The oracle the whole-frame
     path (``extract_features_batched``, K1 + K2) is pinned to bit for
     bit, and the baseline of the paper's frame-multiplexing comparison."""
-    pyramid.check_precision(precision)
-    levels = pyramid.build_pyramid_batched(images, cfg)
+    levels = pyramid.build_pyramid_batched(images, cfg, precision=precision)
     parts = []
     for lvl, (imgs_l, k_l) in enumerate(zip(levels,
                                             cfg.features_per_level())):

@@ -17,9 +17,12 @@ fused matcher launch for every stereo pair.  With
 ``LocalizationOutput`` (rig-frame points and the relative pose since the
 previous frame) for ONE more launch, the match-only temporal matcher; a
 localized ``run`` of T frames folds all T - 1 transitions into that one
-launch (3T + 1 in all).  PyTorch runs eagerly, so the JAX session's jit
-cache has no counterpart here, and ``run`` is a Python loop over frames
-where the JAX package scans.
+launch (3T + 1 in all).  ``PipelineConfig(precision="uint8")`` runs the
+paper's 8-bit datapath on uint8 frames in the same launches (each
+kernel's uint8 variant), with the same outputs as the float32 path on
+the same integer-valued frame.  PyTorch runs eagerly, so the JAX
+session's jit cache has no counterpart here, and ``run`` is a Python
+loop over frames where the JAX package scans.
 
 The session runs on ``device`` ("cuda" unless the caller asks for the
 CPU); on the CPU every kernel runs its plain PyTorch version.  There
@@ -67,15 +70,19 @@ class DesyncDecision(typing.NamedTuple):
 class PipelineConfig:
     """How frames are processed (the rig says WHAT is processed).
 
-    The port runs the sequential schedule at the quantized float32
-    precision.  ``localize`` turns on the localization backend
-    (``repro_torch.localization``): ``process_frame`` and ``run`` then
-    return a ``LocalizationOutput`` for one more launch a frame (one in
-    all for ``run``).  ``temporal_radius`` (x) and ``temporal_radius_y``
-    (y; None = the x radius) bound the frame-to-frame search window of
-    ``temporal_match`` and the backend.  ``precision="uint8"`` (ROADMAP
-    A6) and ``schedule="pipelined"`` (A5) are later slices and raise
-    ``NotImplementedError``."""
+    The port runs the sequential schedule.  ``precision`` selects the
+    image datapath: "f32" (default) takes float frames and keeps float32
+    slabs; "uint8" is the paper's 8-bit datapath end to end — uint8
+    frames and pyramid slabs, int32 accumulators, a uint8 blur, int16
+    FAST scores and int32 moments in the kernels' uint8 variants — and
+    needs ``ORBConfig.quantized``.  ``localize`` turns on the
+    localization backend (``repro_torch.localization``):
+    ``process_frame`` and ``run`` then return a ``LocalizationOutput``
+    for one more launch a frame (one in all for ``run``).
+    ``temporal_radius`` (x) and ``temporal_radius_y`` (y; None = the x
+    radius) bound the frame-to-frame search window of ``temporal_match``
+    and the backend.  ``schedule="pipelined"`` (ROADMAP A5) is a later
+    slice and raises ``NotImplementedError``."""
 
     orb: ORBConfig = ORBConfig()
     schedule: str = "sequential"
@@ -93,12 +100,15 @@ class PipelineConfig:
             raise ValueError(
                 f"precision must be one of {_PRECISIONS}, "
                 f"got {self.precision!r}")
+        if self.precision == "uint8" and not self.orb.quantized:
+            raise ValueError(
+                "precision='uint8' requires ORBConfig.quantized=True: "
+                "the integer datapath IS the quantized fixed-point "
+                "pipeline held in uint8 slabs (a float Gaussian is not "
+                "representable in a uint8 level)")
         if self.schedule == "pipelined":
             raise NotImplementedError(
                 "schedule='pipelined' is not ported yet (ROADMAP A5)")
-        if self.precision == "uint8":
-            raise NotImplementedError(
-                "precision='uint8' is not ported yet (ROADMAP A6)")
 
 
 class VisualSystem:
@@ -118,6 +128,9 @@ class VisualSystem:
             raise TypeError(
                 f"pipe must be a PipelineConfig, got {type(self.pipe)!r}")
         self.device = torch.device(device)
+        # the frames' and level-0 images' dtype on the session's datapath
+        self._dtype = (torch.uint8 if self.pipe.precision == "uint8"
+                       else torch.float32)
         # Bounded health log: one spread per checked frame.
         self.desync_log: "collections.deque[float]" = collections.deque(
             maxlen=4096)
@@ -157,17 +170,30 @@ class VisualSystem:
         self._check_dtype(images, what)
 
     def _check_dtype(self, images, what: str) -> None:
-        """The float32 datapath takes float frames; an integer frame
-        would otherwise run silently through the float kernels."""
+        """Frames against the session's precision: a float frame in a
+        uint8 session, or an integer frame in an f32 one, would
+        otherwise run silently through the other datapath's kernels."""
         dtype = images.dtype
-        floating = (dtype.is_floating_point if isinstance(dtype, torch.dtype)
-                    else np.issubdtype(np.dtype(dtype), np.floating))
-        if not floating:
+        if isinstance(dtype, torch.dtype):
+            uint8, floating = dtype == torch.uint8, dtype.is_floating_point
+        else:
+            uint8 = np.dtype(dtype) == np.uint8
+            floating = np.issubdtype(np.dtype(dtype), np.floating)
+        if self.pipe.precision == "uint8":
+            if not uint8:
+                raise TypeError(
+                    f"{what}: images have dtype {dtype} but this session "
+                    "is configured with PipelineConfig(precision='uint8') "
+                    "— the integer datapath needs uint8 frames.  Quantize "
+                    "with np.round(np.clip(images, 0, 255)).astype("
+                    "np.uint8) or build the session with precision='f32'.")
+        elif not floating:
             raise TypeError(
-                f"{what}: images have dtype {dtype} but this session "
-                "runs PipelineConfig(precision='f32') — pass float "
-                "frames (e.g. images.astype(np.float32)); the uint8 "
-                "datapath is not ported yet (ROADMAP A6)")
+                f"{what}: images have dtype {dtype} but this session is "
+                "configured with PipelineConfig(precision='f32') — pass "
+                "float frames (e.g. images.astype(np.float32)) or build "
+                "the session with precision='uint8' to run the integer "
+                "datapath.")
 
     def desync_decision(self, timestamps) -> DesyncDecision:
         """Apply the rig's sync + desync policies to one frame's camera
@@ -256,7 +282,8 @@ class VisualSystem:
     def _fe_flat(self, images):
         """FE stage over the camera batch: ONE dense + ONE sparse launch
         for every camera at every pyramid level."""
-        feats = orb.extract_features_batched(images, self.pipe.orb)
+        feats = orb.extract_features_batched(images, self.pipe.orb,
+                                             precision=self.pipe.precision)
         feat_l = map_fields(lambda x: x[self._li], feats)
         feat_r = map_fields(lambda x: x[self._ri], feats)
         return images[self._li], images[self._ri], feat_l, feat_r
@@ -290,10 +317,12 @@ class VisualSystem:
         return self._core_flat(images, mask)
 
     def _to_device(self, images) -> torch.Tensor:
-        if isinstance(images, torch.Tensor):
-            return images.to(self.device, torch.float32).contiguous()
-        return torch.as_tensor(np.asarray(images, np.float32),
-                               device=self.device).contiguous()
+        """Images on the session's device, as float32, or as uint8 in a
+        uint8 session (level 0 of its pyramid, and what its matchers
+        read)."""
+        if not isinstance(images, torch.Tensor):
+            images = torch.as_tensor(np.asarray(images))
+        return images.to(self.device, self._dtype).contiguous()
 
     def _on_device(self, tup):
         """A caller's output NamedTuple (features, matches, a state) on
@@ -406,8 +435,9 @@ class VisualSystem:
     def process_frame(self, images, timestamps=None, camera_mask=None,
                       prev: LocalizationState | None = None
                       ) -> StereoOutput | LocalizationOutput | None:
-        """One rig frame: (n_cameras, H, W) float -> StereoOutput with
-        leading (n_pairs,) axes, in exactly 3 kernel launches.  With
+        """One rig frame: (n_cameras, H, W) float (uint8 in a uint8
+        session) -> StereoOutput with leading (n_pairs,) axes, in
+        exactly 3 kernel launches.  With
         ``PipelineConfig.localize`` the return is a
         ``LocalizationOutput`` (adds rig-frame 3-D points and the
         relative pose since the previous processed frame) in 4
@@ -455,7 +485,8 @@ class VisualSystem:
         (n_cameras,) axis, in 2 launches."""
         self._check_images(images, "extract")
         return orb.extract_features_batched(self._to_device(images),
-                                            self.pipe.orb)
+                                            self.pipe.orb,
+                                            precision=self.pipe.precision)
 
     def match_pair(self, img_l, img_r, feat_l: FeatureSet,
                    feat_r: FeatureSet) -> tuple[MatchSet, DepthSet]:

@@ -69,20 +69,17 @@ def bilinear_resize(images: torch.Tensor, out_hw: tuple[int, int]):
 
 def build_pyramid(image: torch.Tensor, cfg: ORBConfig, *,
                   precision: str = "f32") -> list[torch.Tensor]:
-    """(H, W) image -> ``cfg.n_levels`` (h_l, w_l) float32 level images,
-    level 0 the input: the batch-of-one view of
-    ``build_pyramid_batched``."""
-    check_precision(precision)
-    return [lv[0] for lv in build_pyramid_batched(image[None], cfg)]
+    """(H, W) image -> ``cfg.n_levels`` (h_l, w_l) level images (float32,
+    or uint8 under ``precision="uint8"``), level 0 the input: the
+    batch-of-one view of ``build_pyramid_batched``."""
+    return [lv[0] for lv in build_pyramid_batched(image[None], cfg,
+                                                  precision=precision)]
 
 
 def check_precision(precision: str) -> None:
-    """Accept ``"f32"``; ``"uint8"`` (the 8-bit datapath) is not ported
-    yet, and any other string is an error."""
-    if precision == "uint8":
-        raise NotImplementedError(
-            "precision='uint8' is not ported yet (ROADMAP A6)")
-    if precision != "f32":
+    """Accept ``"f32"`` and ``"uint8"`` (the paper's 8-bit datapath);
+    any other string is an error."""
+    if precision not in ("f32", "uint8"):
         raise ValueError(
             f"precision must be 'f32' or 'uint8', got {precision!r}")
 
@@ -92,26 +89,36 @@ def level_shapes(cfg: ORBConfig) -> list[tuple[int, int]]:
     return [cfg.level_shape(lvl) for lvl in range(cfg.n_levels)]
 
 
-def build_pyramid_batched(images: torch.Tensor, cfg: ORBConfig):
-    """(B, H, W) -> list of (B, h_l, w_l) float32 level batches; level 0
-    is the input, and with ``cfg.quantized`` every resized level is
-    rounded and clipped to integer values in [0, 255].
+def build_pyramid_batched(images: torch.Tensor, cfg: ORBConfig, *,
+                          precision: str = "f32"):
+    """(B, H, W) -> list of (B, h_l, w_l) level batches; level 0 is the
+    input.  ``precision="f32"`` gives float32 levels, every resized level
+    rounded and clipped to integer values in [0, 255] with
+    ``cfg.quantized``; ``precision="uint8"`` gives uint8 levels (the
+    paper's 8-bit datapath): level 0 is the input as uint8, and each
+    further level the float32 resize of the level above, rounded and
+    clipped back to uint8.  On an integer-valued frame the two give the
+    same values.
 
     The levels are views into ONE flat buffer, level after level, which
     is the slab layout the dense and sparse FE kernels read in place
     (``kernels.ops.flat_levels``)."""
+    check_precision(precision)
+    integer = precision == "uint8"
     b = images.shape[0]
     shapes = level_shapes(cfg)
     sizes = [b * h * w for h, w in shapes]
-    flat = torch.empty(sum(sizes), dtype=torch.float32, device=images.device)
+    flat = torch.empty(sum(sizes),
+                       dtype=torch.uint8 if integer else torch.float32,
+                       device=images.device)
     levels, off = [], 0
     for lvl, ((h, w), n) in enumerate(zip(shapes, sizes)):
         view = flat[off:off + n].view(b, h, w)
         if lvl == 0:
             view.copy_(images)
         else:
-            out = bilinear_resize(levels[-1], (h, w))
-            if cfg.quantized:
+            out = bilinear_resize(levels[-1].float(), (h, w))
+            if cfg.quantized or integer:
                 out = torch.round(torch.clamp(out, 0.0, 255.0))
             view.copy_(out)
         levels.append(view)

@@ -10,7 +10,11 @@ and a ``CudaKernel`` raises when that is not 0.
 
 ``CudaKernel`` is also where launches are counted: its ``launches``
 integer and every open ``launch_audit()`` scope go up by one each time
-it launches its kernel, and nowhere else.
+it launches its kernel, and nowhere else.  A kernel may have variants
+for other pixel types (``"u8"``: uint8 pixels, the C entry point
+``<symbol>_u8``, the same template body in the same source); a variant's
+launch counts under its kernel's ``launches`` and also under its own
+entry of ``variant_launches``.
 """
 
 from __future__ import annotations
@@ -128,37 +132,65 @@ _F = ctypes.c_float
 ARG = {"p": _P, "i": _I, "f": _F}
 
 
-class CudaKernel:
-    """One hand-written kernel: its C entry point in ``csrc/<source>.cu``
-    and its launch count.  ``signature`` lists the argument kinds ("p"
-    pointer, "i" int, "f" float), without the trailing stream."""
+#: Suffix of each pixel-type variant's C entry point.
+VARIANT_SUFFIX = {"f32": "", "u8": "_u8"}
 
-    def __init__(self, source: str, symbol: str, signature: str) -> None:
+
+def variant_of(pixels: torch.Tensor) -> str:
+    """The variant a kernel runs for ``pixels``: "u8" for uint8, else
+    "f32"."""
+    return "u8" if pixels.dtype == torch.uint8 else "f32"
+
+
+class CudaKernel:
+    """One hand-written kernel: its C entry points in
+    ``csrc/<source>.cu``, one per variant in ``variants``, and its launch
+    count.  ``signature`` lists the argument kinds ("p" pointer, "i"
+    int, "f" float), without the trailing stream; every variant takes
+    the same arguments."""
+
+    def __init__(self, source: str, symbol: str, signature: str,
+                 variants: tuple[str, ...] = ("f32",)) -> None:
         self.source = source
         self.symbol = symbol
         self.signature = signature
+        self.variants = variants
         self.launches = 0
-        self._fn = None
+        self.variant_launches = dict.fromkeys(variants, 0)
+        self._fns: dict[str, object] = {}
 
-    def _entry(self):
-        if self._fn is None:
+    def reset(self) -> None:
+        """Set every launch count of this kernel to 0."""
+        self.launches = 0
+        self.variant_launches = dict.fromkeys(self.variants, 0)
+
+    def _entry(self, variant: str):
+        if variant not in self._fns:
             build_all()
-            fn = getattr(_LIBS[self.source], self.symbol)
+            fn = getattr(_LIBS[self.source],
+                         self.symbol + VARIANT_SUFFIX[variant])
             fn.argtypes = [ARG[c] for c in self.signature] + [_P]
             fn.restype = _I
-            self._fn = fn
-        return self._fn
+            self._fns[variant] = fn
+        return self._fns[variant]
 
-    def __call__(self, device: torch.device, *args) -> None:
-        """Launch on ``device``'s current stream; raise on any error the
-        launch reports.  Pointers are passed as Python ints."""
-        fn = self._entry()
+    def __call__(self, device: torch.device, *args,
+                 variant: str = "f32") -> None:
+        """Launch ``variant`` on ``device``'s current stream; raise on
+        any error the launch reports.  Pointers are passed as Python
+        ints."""
+        if variant not in self.variants:
+            raise ValueError(f"{self.symbol} has no {variant!r} variant "
+                             f"(it has {self.variants})")
+        fn = self._entry(variant)
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
         if err != 0:
             raise RuntimeError(
-                f"{self.symbol}: CUDA launch failed with error {err}")
+                f"{self.symbol}{VARIANT_SUFFIX[variant]}: CUDA launch "
+                f"failed with error {err}")
         self.launches += 1
+        self.variant_launches[variant] += 1
         for audit in _AUDIT_STACK.get():
             audit.count += 1
 

@@ -5,9 +5,19 @@
 // with the functions below, so K8's theta and moments are bit-equal to
 // K2's on the same keypoints; K2 and K7 run the same keypoint body
 // (describe_keypoint).  Each keypoint is one warp's work.
+//
+// load_patches and describe_keypoint are templates over the pixel type
+// P, which is also the type of the patches in shared memory, and
+// patch_theta has an overload for each: float, or uint8_t for the
+// paper's 8-bit datapath (the reference's _block_theta and integer
+// _tap_sign_bits): int32 moments, exact since |m| <= 255 * 4528 < 2^24,
+// converted to float for atan2f and for the moments written out, and
+// tau bits that compare the integer taps.  On integer-valued images the
+// two datapaths give the same floats to atan2f, so the same theta.
 #pragma once
 
 #include <cuda_runtime.h>
+#include <cstdint>
 
 namespace describe {
 
@@ -25,12 +35,12 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 // center (x, y), every read clamped into the image (the reference's
 // edge pad), into ``dst_raw`` / ``dst_sm`` row by row; the warp's 32
 // lanes share them.  K2 loads both windows in one loop, K8 the raw one.
-template <bool kSmoothed>
-__device__ __forceinline__ void load_patches(const float* __restrict__ raw,
-                                             const float* __restrict__ sm,
+template <bool kSmoothed, typename P>
+__device__ __forceinline__ void load_patches(const P* __restrict__ raw,
+                                             const P* __restrict__ sm,
                                              int h, int w, int x, int y,
-                                             int lane, float* dst_raw,
-                                             float* dst_sm) {
+                                             int lane, P* dst_raw,
+                                             P* dst_sm) {
   for (int i = lane; i < NPIX; i += 32) {
     const int gy = clampi(y - RADIUS + i / PATCH, 0, h - 1);
     const int gx = clampi(x - RADIUS + i % PATCH, 0, w - 1);
@@ -67,6 +77,29 @@ __device__ __forceinline__ float patch_theta(const float* patch, int lane,
   return atan2f(m01, m10);
 }
 
+// The same moments of a uint8 patch in int32 (exact in any order), given
+// out as floats (exact below 2^24), and theta = atan2 of those floats.
+__device__ __forceinline__ float patch_theta(const uint8_t* patch, int lane,
+                                             float* m10_out,
+                                             float* m01_out) {
+  int m10 = 0, m01 = 0;
+  for (int i = lane; i < NPIX; i += 32) {
+    const int dy = i / PATCH - RADIUS, dx = i % PATCH - RADIUS;
+    if (dx * dx + dy * dy <= RADIUS * RADIUS) {
+      m10 += static_cast<int>(patch[i]) * dx;
+      m01 += static_cast<int>(patch[i]) * dy;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    m10 += __shfl_down_sync(FULL, m10, o);
+    m01 += __shfl_down_sync(FULL, m01, o);
+  }
+  *m10_out = static_cast<float>(__shfl_sync(FULL, m10, 0));
+  *m01_out = static_cast<float>(__shfl_sync(FULL, m01, 0));
+  return atan2f(*m01_out, *m10_out);
+}
+
 // One keypoint of the sparse FE (K2 and K7), one warp: clamp (x, y)
 // into the (h, w) image, load its raw and smoothed 31x31 patches into
 // ``pr`` / ``ps`` (this warp's shared memory), derive the moments and
@@ -75,10 +108,11 @@ __device__ __forceinline__ float patch_theta(const float* patch, int lane,
 // p(B) on the smoothed patch through the bin's row of the (12, 256, 2)
 // steering ``lut``, packed 32 lanes at a time by __ballot_sync (bit i
 // in word i / 32).  Lane 0 writes theta[kp], mom[2 kp..], desc[8 kp..].
+template <typename P>
 __device__ __forceinline__ void describe_keypoint(
-    const int* __restrict__ lut, const float* __restrict__ raw,
-    const float* __restrict__ sm, int h, int w, int x, int y,
-    float inv_step, int lane, float* pr, float* ps, long long kp,
+    const int* __restrict__ lut, const P* __restrict__ raw,
+    const P* __restrict__ sm, int h, int w, int x, int y,
+    float inv_step, int lane, P* pr, P* ps, long long kp,
     float* __restrict__ theta, float* __restrict__ mom,
     int* __restrict__ desc) {
   x = clampi(x, 0, w - 1);

@@ -25,6 +25,11 @@
 // describe_common.cuh's describe_keypoint, which the per-level kernel
 // (K7, describe_level.cu) runs too; its patch load, moments and theta
 // are also K8's (orient_fused.cu).
+//
+// Pixel types: one template, launched as describe_kernel<float>
+// (describe_fused_pyramid) and describe_kernel<unsigned char>
+// (describe_fused_pyramid_u8, the uint8 datapath: uint8 patches in
+// shared memory, int32 moments, integer tau compares).
 #include "describe_common.cuh"
 
 namespace {
@@ -32,15 +37,16 @@ namespace {
 using describe::NPIX;
 constexpr int WARPS = 4;
 
+template <typename P>
 __global__ void __launch_bounds__(WARPS * 32)
-describe_kernel(const int* __restrict__ lut, const float* __restrict__ raw,
-                const float* __restrict__ sm,
+describe_kernel(const int* __restrict__ lut, const P* __restrict__ raw,
+                const P* __restrict__ sm,
                 const long long* __restrict__ table,
                 const int* __restrict__ xy, const int* __restrict__ col_level,
                 float* __restrict__ theta, float* __restrict__ mom,
                 int* __restrict__ desc, int B, int K, float inv_step) {
-  __shared__ float s_raw[WARPS][NPIX];
-  __shared__ float s_sm[WARPS][NPIX];
+  __shared__ P s_raw[WARPS][NPIX];
+  __shared__ P s_sm[WARPS][NPIX];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const long long kp = static_cast<long long>(blockIdx.x) * WARPS + warp;
@@ -57,6 +63,17 @@ describe_kernel(const int* __restrict__ lut, const float* __restrict__ raw,
                               s_sm[warp], kp, theta, mom, desc);
 }
 
+template <typename P>
+int launch(const int* lut, const P* raw, const P* sm, const long long* table,
+           const int* xy, const int* col_level, float* theta, float* mom,
+           int* desc, int B, int K, float inv_step, cudaStream_t stream) {
+  const long long n = static_cast<long long>(B) * K;
+  const dim3 grid(static_cast<unsigned>((n + WARPS - 1) / WARPS));
+  describe_kernel<P><<<grid, WARPS * 32, 0, stream>>>(
+      lut, raw, sm, table, xy, col_level, theta, mom, desc, B, K, inv_step);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int describe_fused_pyramid(const int* lut, const float* raw,
@@ -65,9 +82,17 @@ extern "C" int describe_fused_pyramid(const int* lut, const float* raw,
                                       float* theta, float* mom, int* desc,
                                       int B, int K, float inv_step,
                                       cudaStream_t stream) {
-  const long long n = static_cast<long long>(B) * K;
-  const dim3 grid(static_cast<unsigned>((n + WARPS - 1) / WARPS));
-  describe_kernel<<<grid, WARPS * 32, 0, stream>>>(
-      lut, raw, sm, table, xy, col_level, theta, mom, desc, B, K, inv_step);
-  return static_cast<int>(cudaGetLastError());
+  return launch(lut, raw, sm, table, xy, col_level, theta, mom, desc, B, K,
+                inv_step, stream);
+}
+
+extern "C" int describe_fused_pyramid_u8(const int* lut, const uint8_t* raw,
+                                         const uint8_t* sm,
+                                         const long long* table,
+                                         const int* xy, const int* col_level,
+                                         float* theta, float* mom, int* desc,
+                                         int B, int K, float inv_step,
+                                         cudaStream_t stream) {
+  return launch(lut, raw, sm, table, xy, col_level, theta, mom, desc, B, K,
+                inv_step, stream);
 }

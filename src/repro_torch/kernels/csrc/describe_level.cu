@@ -27,6 +27,10 @@
 // no padded slab), shuffle-reduced moments, exact shared-memory tau
 // compares packed by __ballot_sync.  The TPU's +-1 selection matmul and
 // its whole-level VMEM residency are gone.
+//
+// Pixel types: one template, launched as describe_level_kernel<float>
+// (describe_fused) and describe_level_kernel<unsigned char>
+// (describe_fused_u8, the uint8 datapath of describe_keypoint).
 #include "describe_common.cuh"
 
 namespace {
@@ -34,15 +38,15 @@ namespace {
 using describe::NPIX;
 constexpr int WARPS = 4;
 
+template <typename P>
 __global__ void __launch_bounds__(WARPS * 32)
-describe_level_kernel(const int* __restrict__ lut,
-                      const float* __restrict__ raw,
-                      const float* __restrict__ sm,
-                      const int* __restrict__ xy, float* __restrict__ theta,
-                      float* __restrict__ mom, int* __restrict__ desc, int B,
-                      int K, int h, int w, float inv_step) {
-  __shared__ float s_raw[WARPS][NPIX];
-  __shared__ float s_sm[WARPS][NPIX];
+describe_level_kernel(const int* __restrict__ lut, const P* __restrict__ raw,
+                      const P* __restrict__ sm, const int* __restrict__ xy,
+                      float* __restrict__ theta, float* __restrict__ mom,
+                      int* __restrict__ desc, int B, int K, int h, int w,
+                      float inv_step) {
+  __shared__ P s_raw[WARPS][NPIX];
+  __shared__ P s_sm[WARPS][NPIX];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const long long kp = static_cast<long long>(blockIdx.x) * WARPS + warp;
@@ -54,15 +58,32 @@ describe_level_kernel(const int* __restrict__ lut,
                               s_sm[warp], kp, theta, mom, desc);
 }
 
+template <typename P>
+int launch(const int* lut, const P* raw, const P* sm, const int* xy,
+           float* theta, float* mom, int* desc, int B, int K, int h, int w,
+           float inv_step, cudaStream_t stream) {
+  const long long n = static_cast<long long>(B) * K;
+  const dim3 grid(static_cast<unsigned>((n + WARPS - 1) / WARPS));
+  describe_level_kernel<P><<<grid, WARPS * 32, 0, stream>>>(
+      lut, raw, sm, xy, theta, mom, desc, B, K, h, w, inv_step);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int describe_fused(const int* lut, const float* raw,
                               const float* sm, const int* xy, float* theta,
                               float* mom, int* desc, int B, int K, int h,
                               int w, float inv_step, cudaStream_t stream) {
-  const long long n = static_cast<long long>(B) * K;
-  const dim3 grid(static_cast<unsigned>((n + WARPS - 1) / WARPS));
-  describe_level_kernel<<<grid, WARPS * 32, 0, stream>>>(
-      lut, raw, sm, xy, theta, mom, desc, B, K, h, w, inv_step);
-  return static_cast<int>(cudaGetLastError());
+  return launch(lut, raw, sm, xy, theta, mom, desc, B, K, h, w, inv_step,
+                stream);
+}
+
+extern "C" int describe_fused_u8(const int* lut, const uint8_t* raw,
+                                 const uint8_t* sm, const int* xy,
+                                 float* theta, float* mom, int* desc, int B,
+                                 int K, int h, int w, float inv_step,
+                                 cudaStream_t stream) {
+  return launch(lut, raw, sm, xy, theta, mom, desc, B, K, h, w, inv_step,
+                stream);
 }

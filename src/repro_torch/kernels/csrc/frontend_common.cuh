@@ -9,9 +9,18 @@
 // Every function reads a row-major tile in shared memory through a
 // pointer and a row stride; the tile is loaded with clamped reads
 // (load_tile), which is the reference's edge padding.
+//
+// The tile body runs on two pixel types (the reference's dtype branch
+// in _tile_outputs): float, with float arithmetic rounded step by step,
+// and uint8_t, the paper's 8-bit datapath, with int32 accumulators, a
+// uint8 blur and an int16 score.  Datapath<T> names the types of each;
+// blur7, blur_norm and fast_score have one overload for each
+// accumulator type.  K1 and K6 instantiate both; K11 and K12 take float
+// pixels only (the reference casts their input to float32).
 #pragma once
 
 #include <cuda_runtime.h>
+#include <cstdint>
 
 namespace frontend {
 
@@ -27,18 +36,35 @@ __constant__ int kCircle[16][2] = {
     {0, -3}, {1, -3}, {2, -2}, {3, -1}, {3, 0},  {3, 1},  {2, 2},  {1, 3},
     {0, 3},  {-1, 3}, {-2, 2}, {-3, 1}, {-3, 0}, {-3, -1}, {-2, -2}, {-1, -3}};
 
+// Pixel, accumulator, blur and score types of each datapath.
+template <typename T>
+struct Datapath;
+template <>
+struct Datapath<float> {
+  using Acc = float;
+  using Blur = float;
+  using Score = float;
+};
+template <>
+struct Datapath<uint8_t> {
+  using Acc = int;
+  using Blur = uint8_t;
+  using Score = int16_t;
+};
+
 // Load the (rows x cols) window of an (h, w) image whose top-left pixel
 // is (y0, x0), every read clamped into the image, into ``dst`` (row
-// stride ``cols``), with ``nt`` threads of the block.
-__device__ __forceinline__ void load_tile(const float* __restrict__ img,
-                                          int h, int w, int y0, int x0,
-                                          int rows, int cols, float* dst,
-                                          int nt) {
+// stride ``cols``, converted to the accumulator type A), with ``nt``
+// threads of the block.
+template <typename T, typename A>
+__device__ __forceinline__ void load_tile(const T* __restrict__ img, int h,
+                                          int w, int y0, int x0, int rows,
+                                          int cols, A* dst, int nt) {
   for (int i = threadIdx.x; i < rows * cols; i += nt) {
     const int r = i / cols, c = i % cols;
     const int gy = clampi(y0 + r, 0, h - 1);
     const int gx = clampi(x0 + c, 0, w - 1);
-    dst[i] = img[static_cast<long long>(gy) * w + gx];
+    dst[i] = static_cast<A>(img[static_cast<long long>(gy) * w + gx]);
   }
 }
 
@@ -56,11 +82,23 @@ __device__ __forceinline__ float blur7(const float* p, int stride) {
   return acc;
 }
 
+// The same 7 taps in int32, exact in any order (at most 255 * 36 * 36).
+__device__ __forceinline__ int blur7(const int* p, int stride) {
+  return p[0] + 4 * p[stride] + 8 * p[2 * stride] + 10 * p[3 * stride] +
+         8 * p[4 * stride] + 4 * p[5 * stride] + p[6 * stride];
+}
+
 // The vertical pass's sum over the norm 36^2 = 1296: round half up with
 // ``quantized``, else the plain IEEE quotient.
 __device__ __forceinline__ float blur_norm(float vert, int quantized) {
   return quantized ? floorf(__fdiv_rn(__fadd_rn(vert, 648.f), 1296.f))
                    : __fdiv_rn(vert, 1296.f);
+}
+
+// The integer datapath's round half up, (vert + 648) / 1296 in integers
+// (vert >= 0, so the quotient is the floor); always quantized.
+__device__ __forceinline__ int blur_norm(int vert, int) {
+  return (vert + 648) / 1296;
 }
 
 // Thresholded FAST-9/16 score of the pixel at ``p`` (its 16 circle taps
@@ -90,16 +128,58 @@ __device__ __forceinline__ float fast_score(const float* p, int stride,
   return sc > threshold ? sc : 0.f;
 }
 
+// The same score on integer taps (differences in [-255, 255]) against
+// the integer threshold floor(threshold), which for integer scores is
+// the same compare.
+__device__ __forceinline__ int fast_score(const int* p, int stride,
+                                          int threshold) {
+  const int ctr = p[0];
+  int d[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+    d[k] = p[kCircle[k][1] * stride + kCircle[k][0]] - ctr;
+  int bright = d[0], dark = d[0];
+#pragma unroll
+  for (int st = 0; st < 16; ++st) {
+    int mn = d[st], mx = d[st];
+#pragma unroll
+    for (int j = 1; j < 9; ++j) {
+      mn = min(mn, d[(st + j) & 15]);
+      mx = max(mx, d[(st + j) & 15]);
+    }
+    bright = st == 0 ? mn : max(bright, mn);
+    dark = st == 0 ? mx : min(dark, mx);
+  }
+  const int sc = max(bright, -dark);
+  return sc > threshold ? sc : 0;
+}
+
+// The threshold in a datapath's accumulator type.
+__device__ __forceinline__ float acc_threshold(float threshold, float) {
+  return threshold;
+}
+__device__ __forceinline__ int acc_threshold(float threshold, int) {
+  return static_cast<int>(floorf(threshold));
+}
+
+__device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ int16_t vmax(int16_t a, int16_t b) {
+  return a > b ? a : b;
+}
+
 // The fused dense tile of K1 and K6: a TILE x TILE output tile plus a
 // halo of 4 (blur / FAST circle 3, NMS 1), DENSE_NT threads a block.
 constexpr int DENSE_HALO = RAD + 1;
 constexpr int DENSE_IW = TILE + 2 * DENSE_HALO;
 constexpr int DENSE_NT = 256;
 
+template <typename T>
 struct DenseTile {
-  float in[DENSE_IW][DENSE_IW];          // the image window, clamped reads
-  float horiz[TILE + 6][TILE];           // the blur's horizontal pass
-  float score[TILE + 2][TILE + 2];       // raw FAST score, with the NMS rim
+  using A = typename Datapath<T>::Acc;
+  using S = typename Datapath<T>::Score;
+  A in[DENSE_IW][DENSE_IW];              // the image window, clamped reads
+  A horiz[TILE + 6][TILE];               // the blur's horizontal pass
+  S score[TILE + 2][TILE + 2];           // raw FAST score, with the NMS rim
 };
 
 // The output tile at (ty0, tx0) of an (h, w) image ``img``: the 7x7 blur
@@ -108,13 +188,18 @@ struct DenseTile {
 // max(cs, 0) without, into ``score``; both row-major (h, w) like
 // ``img``.  Score neighbours outside the image are -1 for NMS, and
 // pixels past the image's edge are neither computed nor stored, so the
-// last partial tile of any shape is masked by the true (h, w).
-__device__ __forceinline__ void dense_tile(const float* __restrict__ img,
-                                           float* __restrict__ blur,
-                                           float* __restrict__ score,
-                                           int h, int w, int ty0, int tx0,
-                                           float threshold, int nms,
-                                           int quantized, DenseTile& s) {
+// last partial tile of any shape is masked by the true (h, w).  On
+// uint8_t pixels the blur is stored as uint8 and the score as int16, the
+// -1 rim in int16 (``quantized`` is then 1; the wrapper checks it).
+template <typename T>
+__device__ __forceinline__ void dense_tile(
+    const T* __restrict__ img, typename Datapath<T>::Blur* __restrict__ blur,
+    typename Datapath<T>::Score* __restrict__ score, int h, int w, int ty0,
+    int tx0, float threshold, int nms, int quantized, DenseTile<T>& s) {
+  using A = typename Datapath<T>::Acc;
+  using B = typename Datapath<T>::Blur;
+  using S = typename Datapath<T>::Score;
+  const A thr = acc_threshold(threshold, A());
   load_tile(img, h, w, ty0 - DENSE_HALO, tx0 - DENSE_HALO, DENSE_IW,
             DENSE_IW, &s.in[0][0], DENSE_NT);
   __syncthreads();
@@ -131,9 +216,9 @@ __device__ __forceinline__ void dense_tile(const float* __restrict__ img,
     const int r = i / (TILE + 2), c = i % (TILE + 2);
     const int gy = ty0 - 1 + r, gx = tx0 - 1 + c;
     s.score[r][c] = (gy >= 0 && gy < h && gx >= 0 && gx < w)
-                        ? fast_score(&s.in[r + 3][c + 3], DENSE_IW,
-                                     threshold)
-                        : -1.f;
+                        ? static_cast<S>(fast_score(&s.in[r + 3][c + 3],
+                                                    DENSE_IW, thr))
+                        : static_cast<S>(-1);
   }
   __syncthreads();
 
@@ -142,18 +227,20 @@ __device__ __forceinline__ void dense_tile(const float* __restrict__ img,
     const int r = i / TILE, c = i % TILE;
     const int gy = ty0 + r, gx = tx0 + c;
     if (gy >= h || gx >= w) continue;
-    const float b = blur_norm(blur7(&s.horiz[r][c], TILE), quantized);
-    const float cs = s.score[r + 1][c + 1];
-    float out;
+    const B b =
+        static_cast<B>(blur_norm(blur7(&s.horiz[r][c], TILE), quantized));
+    const S cs = s.score[r + 1][c + 1];
+    const S zero = static_cast<S>(0);
+    S out;
     if (nms) {
-      float m = cs;
+      S m = cs;
 #pragma unroll
       for (int dy = 0; dy < 3; ++dy)
 #pragma unroll
-        for (int dx = 0; dx < 3; ++dx) m = fmaxf(m, s.score[r + dy][c + dx]);
-      out = (cs >= m && cs > 0.f) ? cs : 0.f;
+        for (int dx = 0; dx < 3; ++dx) m = vmax(m, s.score[r + dy][c + dx]);
+      out = (cs >= m && cs > zero) ? cs : zero;
     } else {
-      out = fmaxf(cs, 0.f);
+      out = vmax(cs, zero);
     }
     const long long o = static_cast<long long>(gy) * w + gx;
     blur[o] = b;

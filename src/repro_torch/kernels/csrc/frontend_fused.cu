@@ -26,16 +26,25 @@
 // and true shape.  The tile body is frontend_common.cuh's dense_tile,
 // which the per-level kernel (K6, frontend_level.cu) runs too; its tile
 // load, blur and FAST score are also K11's and K12's.
+//
+// Pixel types: the kernel is one template over the pixel type, launched
+// as frontend_kernel<float> (frontend_fused_pyramid) and as
+// frontend_kernel<unsigned char> (frontend_fused_pyramid_u8), the
+// reference's uint8 datapath: int32 arithmetic, a uint8 blur and an
+// int16 score, 4 B a pixel of traffic instead of 12.
 #include "frontend_common.cuh"
 
 namespace {
 
 constexpr int T = frontend::TILE;
 
+template <typename P>
 __global__ void __launch_bounds__(frontend::DENSE_NT)
-frontend_kernel(const float* __restrict__ in, float* __restrict__ blur,
-                float* __restrict__ score, const long long* __restrict__ table,
-                float threshold, int nms, int quantized) {
+frontend_kernel(const P* __restrict__ in,
+                typename frontend::Datapath<P>::Blur* __restrict__ blur,
+                typename frontend::Datapath<P>::Score* __restrict__ score,
+                const long long* __restrict__ table, float threshold,
+                int nms, int quantized) {
   const int s = blockIdx.z;
   const long long off = table[3 * s];
   const int h = static_cast<int>(table[3 * s + 1]);
@@ -44,9 +53,20 @@ frontend_kernel(const float* __restrict__ in, float* __restrict__ blur,
   const int tx0 = blockIdx.x * T;
   if (ty0 >= h || tx0 >= w) return;          // tile past a smaller slab
 
-  __shared__ frontend::DenseTile tile;
+  __shared__ frontend::DenseTile<P> tile;
   frontend::dense_tile(in + off, blur + off, score + off, h, w, ty0, tx0,
                        threshold, nms, quantized, tile);
+}
+
+template <typename P>
+int launch(const P* in, typename frontend::Datapath<P>::Blur* blur,
+           typename frontend::Datapath<P>::Score* score,
+           const long long* table, int n_slabs, int max_h, int max_w,
+           float threshold, int nms, int quantized, cudaStream_t stream) {
+  const dim3 grid((max_w + T - 1) / T, (max_h + T - 1) / T, n_slabs);
+  frontend_kernel<P><<<grid, frontend::DENSE_NT, 0, stream>>>(
+      in, blur, score, table, threshold, nms, quantized);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -56,8 +76,16 @@ extern "C" int frontend_fused_pyramid(const float* in, float* blur,
                                       int n_slabs, int max_h, int max_w,
                                       float threshold, int nms, int quantized,
                                       cudaStream_t stream) {
-  const dim3 grid((max_w + T - 1) / T, (max_h + T - 1) / T, n_slabs);
-  frontend_kernel<<<grid, frontend::DENSE_NT, 0, stream>>>(
-      in, blur, score, table, threshold, nms, quantized);
-  return static_cast<int>(cudaGetLastError());
+  return launch(in, blur, score, table, n_slabs, max_h, max_w, threshold,
+                nms, quantized, stream);
+}
+
+extern "C" int frontend_fused_pyramid_u8(const uint8_t* in, uint8_t* blur,
+                                         int16_t* score,
+                                         const long long* table, int n_slabs,
+                                         int max_h, int max_w,
+                                         float threshold, int nms,
+                                         int quantized, cudaStream_t stream) {
+  return launch(in, blur, score, table, n_slabs, max_h, max_w, threshold,
+                nms, quantized, stream);
 }

@@ -23,21 +23,39 @@
 // (-1) and in the store.  The TPU's 128 x 128 tile alignment, its
 // FUSED_HALO edge-padded canvas and Unblocked halo windows are gone:
 // clamped reads are the edge pad.
+//
+// Pixel types: one template, launched as frontend_level_kernel<float>
+// (frontend_fused) and frontend_level_kernel<unsigned char>
+// (frontend_fused_u8, the uint8 datapath of dense_tile).
 #include "frontend_common.cuh"
 
 namespace {
 
 constexpr int T = frontend::TILE;
 
+template <typename P>
 __global__ void __launch_bounds__(frontend::DENSE_NT)
-frontend_level_kernel(const float* __restrict__ in, float* __restrict__ blur,
-                      float* __restrict__ score, int h, int w,
-                      float threshold, int nms, int quantized) {
+frontend_level_kernel(
+    const P* __restrict__ in,
+    typename frontend::Datapath<P>::Blur* __restrict__ blur,
+    typename frontend::Datapath<P>::Score* __restrict__ score, int h, int w,
+    float threshold, int nms, int quantized) {
   const long long img = static_cast<long long>(blockIdx.z) * h * w;
-  __shared__ frontend::DenseTile tile;
+  __shared__ frontend::DenseTile<P> tile;
   frontend::dense_tile(in + img, blur + img, score + img, h, w,
                        blockIdx.y * T, blockIdx.x * T, threshold, nms,
                        quantized, tile);
+}
+
+template <typename P>
+int launch(const P* in, typename frontend::Datapath<P>::Blur* blur,
+           typename frontend::Datapath<P>::Score* score, int B, int h,
+           int w, float threshold, int nms, int quantized,
+           cudaStream_t stream) {
+  const dim3 grid((w + T - 1) / T, (h + T - 1) / T, B);
+  frontend_level_kernel<P><<<grid, frontend::DENSE_NT, 0, stream>>>(
+      in, blur, score, h, w, threshold, nms, quantized);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -45,8 +63,12 @@ frontend_level_kernel(const float* __restrict__ in, float* __restrict__ blur,
 extern "C" int frontend_fused(const float* in, float* blur, float* score,
                               int B, int h, int w, float threshold, int nms,
                               int quantized, cudaStream_t stream) {
-  const dim3 grid((w + T - 1) / T, (h + T - 1) / T, B);
-  frontend_level_kernel<<<grid, frontend::DENSE_NT, 0, stream>>>(
-      in, blur, score, h, w, threshold, nms, quantized);
-  return static_cast<int>(cudaGetLastError());
+  return launch(in, blur, score, B, h, w, threshold, nms, quantized, stream);
+}
+
+extern "C" int frontend_fused_u8(const uint8_t* in, uint8_t* blur,
+                                 int16_t* score, int B, int h, int w,
+                                 float threshold, int nms, int quantized,
+                                 cudaStream_t stream) {
+  return launch(in, blur, score, B, h, w, threshold, nms, quantized, stream);
 }

@@ -8,6 +8,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <cstdint>
 
 namespace matcher {
 
@@ -68,10 +69,13 @@ __device__ __forceinline__ void warp_hamming_argmin(
 // warp's shared buffers, as int32.  Centers round half to even (rintf,
 // not roundf) and clamp into the H x W image; every pixel read clamps
 // too, which is the reference's edge padding.  Pixels truncate to int32
-// as the reference's astype.
+// as the reference's astype: float pixels, or uint8_t ones (the uint8
+// datapath's level-0 images), whose int32 values are the same on an
+// integer-valued frame, so the SAD table is too.
+template <typename P>
 __device__ __forceinline__ void load_windows(
-    const float* __restrict__ imgl, const float* __restrict__ imgr, int H,
-    int W, float lx, float ly, float rx, float ry, int patch, int sad_range,
+    const P* __restrict__ imgl, const P* __restrict__ imgr, int H, int W,
+    float lx, float ly, float rx, float ry, int patch, int sad_range,
     int lane, int* sl, int* sr) {
   const int half = patch / 2;
   const int sw = patch + 2 * sad_range;   // strip width

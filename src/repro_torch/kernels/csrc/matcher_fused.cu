@@ -28,6 +28,12 @@
 // is exact.  The warp's search, window reads and SAD sweep are the
 // helpers of matcher_common.cuh, shared with the match-only and SAD-only
 // kernels.
+//
+// Pixel types: one template, launched as match_kernel<float>
+// (match_rectify_fused) and match_kernel<unsigned char>
+// (match_rectify_fused_u8, on the uint8 datapath's level-0 images).  The
+// SAD runs in int32 either way, so on an integer-valued frame the two
+// give bit-equal outputs.
 #include "matcher_common.cuh"
 
 namespace {
@@ -37,10 +43,11 @@ using matcher::MAXR;
 
 constexpr int WARPS = 8;
 
+template <typename Pix>
 __global__ void __launch_bounds__(WARPS * 32)
 match_kernel(const int* __restrict__ dl, const float* __restrict__ ml,
              const int* __restrict__ dr, const float* __restrict__ mr,
-             const float* __restrict__ il, const float* __restrict__ ir,
+             const Pix* __restrict__ il, const Pix* __restrict__ ir,
              int* __restrict__ dist_out, int* __restrict__ idx_out,
              float* __restrict__ rxy_out, int* __restrict__ sad_out, int P,
              int K, int M, int H, int W, float row_band, float max_disp,
@@ -71,8 +78,8 @@ match_kernel(const int* __restrict__ dl, const float* __restrict__ ml,
   const float rx = mrp[4 * eff], ry = mrp[4 * eff + 1];
 
   // SAD rectification.
-  const float* imgl = il + static_cast<long long>(p) * H * W;
-  const float* imgr = ir + static_cast<long long>(p) * H * W;
+  const Pix* imgl = il + static_cast<long long>(p) * H * W;
+  const Pix* imgr = ir + static_cast<long long>(p) * H * W;
   matcher::load_windows(imgl, imgr, H, W, lx, ly, rx, ry, patch, sad_range,
                         lane, s_l[warp], s_r[warp]);
   int best_sad = 0, best_s = 0;
@@ -94,6 +101,22 @@ match_kernel(const int* __restrict__ dl, const float* __restrict__ ml,
   }
 }
 
+template <typename Pix>
+int launch(const int* dl, const float* ml, const int* dr, const float* mr,
+           const Pix* il, const Pix* ir, int* dist, int* idx, float* rxy,
+           int* sad, int P, int K, int M, int H, int W, float row_band,
+           float max_disp, int max_hamming, int patch, int sad_range,
+           cudaStream_t stream) {
+  if (patch > MAXP || sad_range > MAXR)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n = static_cast<long long>(P) * K;
+  const dim3 grid(static_cast<unsigned>((n + WARPS - 1) / WARPS));
+  match_kernel<Pix><<<grid, WARPS * 32, 0, stream>>>(
+      dl, ml, dr, mr, il, ir, dist, idx, rxy, sad, P, K, M, H, W, row_band,
+      max_disp, max_hamming, patch, sad_range);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int match_rectify_fused(const int* dl, const float* ml,
@@ -104,11 +127,18 @@ extern "C" int match_rectify_fused(const int* dl, const float* ml,
                                    float row_band, float max_disp,
                                    int max_hamming, int patch, int sad_range,
                                    cudaStream_t stream) {
-  if (patch > MAXP || sad_range > MAXR) return static_cast<int>(cudaErrorInvalidValue);
-  const long long n = static_cast<long long>(P) * K;
-  const dim3 grid(static_cast<unsigned>((n + WARPS - 1) / WARPS));
-  match_kernel<<<grid, WARPS * 32, 0, stream>>>(
-      dl, ml, dr, mr, il, ir, dist, idx, rxy, sad, P, K, M, H, W, row_band,
-      max_disp, max_hamming, patch, sad_range);
-  return static_cast<int>(cudaGetLastError());
+  return launch(dl, ml, dr, mr, il, ir, dist, idx, rxy, sad, P, K, M, H, W,
+                row_band, max_disp, max_hamming, patch, sad_range, stream);
+}
+
+extern "C" int match_rectify_fused_u8(const int* dl, const float* ml,
+                                      const int* dr, const float* mr,
+                                      const uint8_t* il, const uint8_t* ir,
+                                      int* dist, int* idx, float* rxy,
+                                      int* sad, int P, int K, int M, int H,
+                                      int W, float row_band, float max_disp,
+                                      int max_hamming, int patch,
+                                      int sad_range, cudaStream_t stream) {
+  return launch(dl, ml, dr, mr, il, ir, dist, idx, rxy, sad, P, K, M, H, W,
+                row_band, max_disp, max_hamming, patch, sad_range, stream);
 }

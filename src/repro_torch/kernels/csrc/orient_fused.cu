@@ -22,6 +22,10 @@
 // memory with clamped reads (the reference's edge pad: no padded slab).
 // The patch load, moments and theta are describe_common.cuh's, the same
 // device code K2 runs, so theta and moments are bit-equal to K2's.
+//
+// Pixel types: one template, launched as orient_kernel<float>
+// (orient_fused) and orient_kernel<unsigned char> (orient_fused_u8:
+// int32 moments, the reference's integer _block_theta).
 #include "describe_common.cuh"
 
 namespace {
@@ -29,11 +33,12 @@ namespace {
 using describe::NPIX;
 constexpr int WARPS = 4;
 
+template <typename P>
 __global__ void __launch_bounds__(WARPS * 32)
-orient_kernel(const float* __restrict__ raw, const int* __restrict__ xy,
+orient_kernel(const P* __restrict__ raw, const int* __restrict__ xy,
               float* __restrict__ theta, float* __restrict__ mom, int B,
               int K, int h, int w) {
-  __shared__ float s_raw[WARPS][NPIX];
+  __shared__ P s_raw[WARPS][NPIX];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const long long kp = static_cast<long long>(blockIdx.x) * WARPS + warp;
@@ -42,9 +47,10 @@ orient_kernel(const float* __restrict__ raw, const int* __restrict__ xy,
   const long long img = (kp / K) * h * w;
   const int x = describe::clampi(xy[2 * kp], 0, w - 1);
   const int y = describe::clampi(xy[2 * kp + 1], 0, h - 1);
-  float* pr = s_raw[warp];
-  describe::load_patches<false>(raw + img, nullptr, h, w, x, y, lane, pr,
-                                nullptr);
+  P* pr = s_raw[warp];
+  describe::load_patches<false>(raw + img, static_cast<const P*>(nullptr),
+                                h, w, x, y, lane, pr,
+                                static_cast<P*>(nullptr));
   __syncwarp();
 
   float m10, m01;
@@ -56,14 +62,26 @@ orient_kernel(const float* __restrict__ raw, const int* __restrict__ xy,
   }
 }
 
+template <typename P>
+int launch(const P* raw, const int* xy, float* theta, float* mom, int B,
+           int K, int h, int w, cudaStream_t stream) {
+  const long long n = static_cast<long long>(B) * K;
+  const dim3 grid(static_cast<unsigned>((n + WARPS - 1) / WARPS));
+  orient_kernel<P><<<grid, WARPS * 32, 0, stream>>>(raw, xy, theta, mom, B,
+                                                    K, h, w);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int orient_fused(const float* raw, const int* xy, float* theta,
                             float* mom, int B, int K, int h, int w,
                             cudaStream_t stream) {
-  const long long n = static_cast<long long>(B) * K;
-  const dim3 grid(static_cast<unsigned>((n + WARPS - 1) / WARPS));
-  orient_kernel<<<grid, WARPS * 32, 0, stream>>>(raw, xy, theta, mom, B, K,
-                                                 h, w);
-  return static_cast<int>(cudaGetLastError());
+  return launch(raw, xy, theta, mom, B, K, h, w, stream);
+}
+
+extern "C" int orient_fused_u8(const uint8_t* raw, const int* xy,
+                               float* theta, float* mom, int B, int K, int h,
+                               int w, cudaStream_t stream) {
+  return launch(raw, xy, theta, mom, B, K, h, w, stream);
 }

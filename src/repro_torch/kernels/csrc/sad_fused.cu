@@ -21,6 +21,10 @@
 // reference's edge padding: the TPU's edge-padded, tile-aligned slabs
 // resident in VMEM (_pad_fm_slab) are not built.  The sweep reduces each
 // shift's SAD over the warp, and lanes 0..2R write the table row.
+//
+// Pixel types: one template, launched as sad_only_kernel<float>
+// (sad_fused) and sad_only_kernel<unsigned char> (sad_fused_u8, on the
+// uint8 datapath's images); the SAD is int32 either way.
 #include "matcher_common.cuh"
 
 namespace {
@@ -30,9 +34,10 @@ using matcher::MAXR;
 
 constexpr int WARPS = 8;
 
+template <typename Pix>
 __global__ void __launch_bounds__(WARPS * 32)
 sad_only_kernel(const float* __restrict__ xyl, const float* __restrict__ xyr,
-                const float* __restrict__ il, const float* __restrict__ ir,
+                const Pix* __restrict__ il, const Pix* __restrict__ ir,
                 int* __restrict__ table, int P, int K, int H, int W,
                 int patch, int sad_range) {
   __shared__ int s_l[WARPS][MAXP * MAXP];
@@ -56,18 +61,33 @@ sad_only_kernel(const float* __restrict__ xyl, const float* __restrict__ xyr,
   if (lane < sweep) table[q * sweep + lane] = mine;
 }
 
+template <typename Pix>
+int launch(const float* xyl, const float* xyr, const Pix* il, const Pix* ir,
+           int* table, int P, int K, int H, int W, int patch, int sad_range,
+           cudaStream_t stream) {
+  if (patch > MAXP || sad_range > MAXR)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n = static_cast<long long>(P) * K;
+  const dim3 grid(static_cast<unsigned>((n + WARPS - 1) / WARPS));
+  sad_only_kernel<Pix><<<grid, WARPS * 32, 0, stream>>>(
+      xyl, xyr, il, ir, table, P, K, H, W, patch, sad_range);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int sad_fused(const float* xyl, const float* xyr, const float* il,
                          const float* ir, int* table, int P, int K, int H,
                          int W, int patch, int sad_range,
                          cudaStream_t stream) {
-  if (patch > MAXP || sad_range > MAXR)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long n = static_cast<long long>(P) * K;
-  const dim3 grid(static_cast<unsigned>((n + WARPS - 1) / WARPS));
-  sad_only_kernel<<<grid, WARPS * 32, 0, stream>>>(xyl, xyr, il, ir, table,
-                                                   P, K, H, W, patch,
-                                                   sad_range);
-  return static_cast<int>(cudaGetLastError());
+  return launch(xyl, xyr, il, ir, table, P, K, H, W, patch, sad_range,
+                stream);
+}
+
+extern "C" int sad_fused_u8(const float* xyl, const float* xyr,
+                            const uint8_t* il, const uint8_t* ir, int* table,
+                            int P, int K, int H, int W, int patch,
+                            int sad_range, cudaStream_t stream) {
+  return launch(xyl, xyr, il, ir, table, P, K, H, W, patch, sad_range,
+                stream);
 }

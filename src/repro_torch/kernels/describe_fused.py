@@ -25,6 +25,14 @@ schedule; it runs K2's keypoint body (``describe_common.cuh``'s
 kernel (port of ``orient_fused_pallas``, K8; ``csrc/orient_fused.cu``):
 the same moments and theta with no smoothed image and no descriptor.
 The three plain versions share their patch reads and arithmetic.
+
+Every kernel takes float32 or uint8 images (raw and smoothed of one
+type).  uint8 is the paper's 8-bit datapath (the JAX package's integer
+``_block_theta`` and ``_tap_sign_bits``): int32 moments, given out as
+float32, theta = atan2 of those floats, and tau bits that compare the
+integer taps.  Each kernel's uint8 variant is its template body
+instantiated for ``uint8_t`` (C entry point ``<symbol>_u8``), counted
+under the kernel's own counter.
 """
 
 from __future__ import annotations
@@ -35,13 +43,16 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.frontend_fused import SlabTable, slab_table
 from repro_torch.kernels.ref import (INV_ANGLE_STEP, PATCH, RADIUS,
                                      clamped_index, lut_descriptor,
-                                     patch_theta, steer_lut, theta_to_bin)
+                                     patch_theta, patch_theta_int, steer_lut,
+                                     theta_to_bin)
 
+PIXELS = (torch.float32, torch.uint8)
 KERNEL = _build.CudaKernel("describe_fused", "describe_fused_pyramid",
-                           "pppppppppiif")
-ORIENT_KERNEL = _build.CudaKernel("orient_fused", "orient_fused", "ppppiiii")
+                           "pppppppppiif", variants=("f32", "u8"))
+ORIENT_KERNEL = _build.CudaKernel("orient_fused", "orient_fused", "ppppiiii",
+                                  variants=("f32", "u8"))
 LEVEL_KERNEL = _build.CudaKernel("describe_level", "describe_fused",
-                                 "pppppppiiiif")
+                                 "pppppppiiiif", variants=("f32", "u8"))
 
 
 def _slab_patches(flat: torch.Tensor, slab: torch.Tensor, table, xy):
@@ -66,10 +77,19 @@ def level_patches(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     return _slab_patches(img.reshape(-1), slab, slabs.table, xy)
 
 
+def _theta(raw_patches: torch.Tensor):
+    """Raw patches -> (theta, float32 moments): int32 moments for uint8
+    patches, float32 sums for float ones."""
+    if raw_patches.dtype == torch.uint8:
+        theta, mom = patch_theta_int(raw_patches)
+        return theta, mom.float()
+    return patch_theta(raw_patches)
+
+
 def _describe_patches(raw_patches: torch.Tensor, sm_patches: torch.Tensor):
     """Raw and smoothed patches -> (theta, moments, desc): the sparse
     FE's arithmetic."""
-    theta, mom = patch_theta(raw_patches)
+    theta, mom = _theta(raw_patches)
     return theta, mom, lut_descriptor(sm_patches, theta_to_bin(theta))
 
 
@@ -90,10 +110,10 @@ def describe_fused_pyramid_cuda(raw: torch.Tensor, smoothed: torch.Tensor,
                                 col_level: torch.Tensor):
     """Launch ``csrc/describe_fused.cu`` once over every keypoint."""
     dev = _build.require_cuda(raw, smoothed, slabs.table, xy, col_level)
-    if (raw.dtype != torch.float32 or smoothed.dtype != torch.float32
+    if (raw.dtype not in PIXELS or smoothed.dtype != raw.dtype
             or xy.dtype != torch.int32 or col_level.dtype != torch.int32):
-        raise ValueError("sparse FE takes float32 slabs and int32 "
-                         "keypoints and column levels")
+        raise ValueError("sparse FE takes float32 or uint8 slabs, both of "
+                         "one type, and int32 keypoints and column levels")
     b, k = xy.shape[0], xy.shape[1]
     theta = torch.empty((b, k), dtype=torch.float32, device=dev)
     mom = torch.empty((b, k, 2), dtype=torch.float32, device=dev)
@@ -102,7 +122,8 @@ def describe_fused_pyramid_cuda(raw: torch.Tensor, smoothed: torch.Tensor,
         KERNEL(dev, steer_lut(str(dev)).data_ptr(), raw.data_ptr(),
                smoothed.data_ptr(), slabs.table.data_ptr(), xy.data_ptr(),
                col_level.data_ptr(), theta.data_ptr(), mom.data_ptr(),
-               desc.data_ptr(), b, k, INV_ANGLE_STEP)
+               desc.data_ptr(), b, k, INV_ANGLE_STEP,
+               variant=_build.variant_of(raw))
     return theta, mom, desc
 
 
@@ -127,8 +148,9 @@ def describe_fused_plain(raw: torch.Tensor, smoothed: torch.Tensor,
 
 
 def _check_level(raw: torch.Tensor, xy: torch.Tensor, what: str):
-    if raw.dtype != torch.float32 or xy.dtype != torch.int32:
-        raise ValueError(f"{what} takes float32 images and int32 keypoints")
+    if raw.dtype not in PIXELS or xy.dtype != torch.int32:
+        raise ValueError(f"{what} takes float32 or uint8 images and int32 "
+                         "keypoints")
     b, h, w = raw.shape
     k = xy.shape[1]
     if xy.shape != (b, k, 2):
@@ -141,9 +163,9 @@ def describe_fused_cuda(raw: torch.Tensor, smoothed: torch.Tensor,
     """Launch ``csrc/describe_level.cu`` once over every keypoint."""
     dev = _build.require_cuda(raw, smoothed, xy)
     b, k, h, w = _check_level(raw, xy, "per-level sparse FE")
-    if smoothed.dtype != torch.float32 or smoothed.shape != raw.shape:
-        raise ValueError("the smoothed image must be float32 and of the "
-                         "raw image's shape")
+    if smoothed.dtype != raw.dtype or smoothed.shape != raw.shape:
+        raise ValueError("the smoothed image must be of the raw image's "
+                         "dtype and shape")
     theta = torch.empty((b, k), dtype=torch.float32, device=dev)
     mom = torch.empty((b, k, 2), dtype=torch.float32, device=dev)
     desc = torch.empty((b, k, 8), dtype=torch.int32, device=dev)
@@ -151,14 +173,14 @@ def describe_fused_cuda(raw: torch.Tensor, smoothed: torch.Tensor,
         LEVEL_KERNEL(dev, steer_lut(str(dev)).data_ptr(), raw.data_ptr(),
                      smoothed.data_ptr(), xy.data_ptr(), theta.data_ptr(),
                      mom.data_ptr(), desc.data_ptr(), b, k, h, w,
-                     INV_ANGLE_STEP)
+                     INV_ANGLE_STEP, variant=_build.variant_of(raw))
     return theta, mom, desc
 
 
 def describe_fused(raw: torch.Tensor, smoothed: torch.Tensor,
                    xy: torch.Tensor):
-    """raw, smoothed: (B, H, W) float32 images of one level; xy: (B, K,
-    2) int32 keypoints, clamped into the image.  Returns (theta (B, K),
+    """raw, smoothed: (B, H, W) float32 or uint8 images of one level;
+    xy: (B, K, 2) int32 keypoints, clamped into the image.  Returns (theta (B, K),
     moments (B, K, 2), desc (B, K, 8) int32).  A CPU tensor runs the
     plain version; a CUDA tensor launches the kernel."""
     fn = describe_fused_plain if raw.device.type == "cpu" else describe_fused_cuda
@@ -168,7 +190,7 @@ def describe_fused(raw: torch.Tensor, smoothed: torch.Tensor,
 def orient_fused_plain(raw: torch.Tensor, xy: torch.Tensor):
     """Plain PyTorch version of the orientation-only kernel.  Returns
     (theta (B, K) f32, moments (B, K, 2) f32)."""
-    return patch_theta(level_patches(raw, xy))
+    return _theta(level_patches(raw, xy))
 
 
 def orient_fused_cuda(raw: torch.Tensor, xy: torch.Tensor):
@@ -179,14 +201,15 @@ def orient_fused_cuda(raw: torch.Tensor, xy: torch.Tensor):
     mom = torch.empty((b, k, 2), dtype=torch.float32, device=dev)
     if b * k:
         ORIENT_KERNEL(dev, raw.data_ptr(), xy.data_ptr(), theta.data_ptr(),
-                      mom.data_ptr(), b, k, h, w)
+                      mom.data_ptr(), b, k, h, w,
+                      variant=_build.variant_of(raw))
     return theta, mom
 
 
 def orient_fused(raw: torch.Tensor, xy: torch.Tensor):
-    """raw: (B, H, W) float32 images; xy: (B, K, 2) int32 keypoints,
-    clamped into the image.  Returns (theta (B, K), moments (B, K, 2)).
-    A CPU tensor runs the plain version; a CUDA tensor launches the
-    kernel."""
+    """raw: (B, H, W) float32 or uint8 images; xy: (B, K, 2) int32
+    keypoints, clamped into the image.  Returns (theta (B, K), moments
+    (B, K, 2)).  A CPU tensor runs the plain version; a CUDA tensor
+    launches the kernel."""
     fn = orient_fused_plain if raw.device.type == "cpu" else orient_fused_cuda
     return fn(raw, xy)

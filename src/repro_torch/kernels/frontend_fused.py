@@ -8,7 +8,8 @@ top-K).  Pixels outside a slab's true (h, w) are -1 to NMS, and image
 taps past the border replicate the edge pixel.
 
 Slab layout: all slabs (level-major, then camera) lie back to back in
-one flat float32 buffer; ``SlabTable`` gives each slab's (offset, h, w).
+one flat float32 or uint8 buffer; ``SlabTable`` gives each slab's
+(offset, h, w).
 The CUDA kernel (``csrc/frontend_fused.cu``) indexes each slab in place
 and clamps its reads, so there is no padded common canvas.  The plain
 version below is the same function in PyTorch; the wrapper picks it
@@ -20,6 +21,14 @@ blur and NMS'd score for a (B, H, W) batch of ONE level, one launch a
 level, for the per-level FE schedule.  K1 and K6 run one tile body
 (``frontend_common.cuh``'s ``dense_tile``), and the plain version of
 K1 is K6's on each run of equal-shape slabs.
+
+Both kernels take float32 or uint8 pixels.  uint8 is the paper's 8-bit
+datapath (the JAX package's integer ``_tile_outputs``): int32
+accumulators, the blur ``(v + 648) // 1296`` stored as uint8 and the
+FAST score, compared against ``floor(threshold)``, as int16.  It needs
+the quantized blur.  Each kernel's uint8 variant is the same template
+body instantiated for ``uint8_t`` (C entry point ``<symbol>_u8``),
+counted under the kernel's own counter.
 """
 
 from __future__ import annotations
@@ -32,12 +41,13 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (ARC_LEN, CIRCLE16, GAUSS7_NORM,
-                                     GAUSS7_WEIGHTS_INT, nms3, true_div)
+                                     GAUSS7_WEIGHTS_INT, fast_blur_nms_int,
+                                     nms3, true_div)
 
 KERNEL = _build.CudaKernel("frontend_fused", "frontend_fused_pyramid",
-                           "ppppiiifii")
+                           "ppppiiifii", variants=("f32", "u8"))
 LEVEL_KERNEL = _build.CudaKernel("frontend_level", "frontend_fused",
-                                 "pppiiifii")
+                                 "pppiiifii", variants=("f32", "u8"))
 
 
 class SlabTable(NamedTuple):
@@ -106,11 +116,30 @@ def fast_score_plain(x: torch.Tensor, threshold: float) -> torch.Tensor:
     return torch.where(score > threshold, score, torch.zeros_like(score))
 
 
+def out_dtypes(x: torch.Tensor, quantized: bool):
+    """(blur, score) dtypes of the dense FE on ``x``'s pixels: float32
+    and float32, or uint8 and int16 for uint8 pixels, which need the
+    quantized blur (the JAX package's ``_slab_dtypes``)."""
+    if x.dtype == torch.uint8:
+        if not quantized:
+            raise ValueError(
+                "the uint8 datapath requires quantized=True (the float "
+                "Gaussian is not representable in a uint8 slab)")
+        return torch.uint8, torch.int16
+    if x.dtype == torch.float32:
+        return torch.float32, torch.float32
+    raise ValueError(f"dense FE takes float32 or uint8 pixels, got {x.dtype}")
+
+
 def frontend_fused_plain(x: torch.Tensor, *, threshold: float,
                          nms: bool = True, quantized: bool = True):
     """Plain PyTorch version of the per-level dense FE kernel: (B, H, W)
-    float32 -> (blur, score), each (B, H, W) float32.  Without NMS the
+    float32 -> (blur, score), each (B, H, W) float32; uint8 -> (uint8
+    blur, int16 score) through the integer oracles.  Without NMS the
     thresholded score is already max(score, 0)."""
+    if x.dtype == torch.uint8:
+        out_dtypes(x, quantized)
+        return fast_blur_nms_int(x, float(threshold), nms=nms)
     sc = fast_score_plain(x, float(threshold))
     return blur_plain(x, quantized), nms3(sc) if nms else sc
 
@@ -121,8 +150,9 @@ def frontend_fused_pyramid_plain(flat: torch.Tensor, slabs: SlabTable, *,
     """Plain PyTorch version of the dense FE kernel: same inputs, same
     outputs.  Slabs of one shape that lie back to back run as a batch,
     through the per-level plain version."""
-    blur = torch.empty_like(flat)
-    score = torch.empty_like(flat)
+    blur_dtype, score_dtype = out_dtypes(flat, quantized)
+    blur = torch.empty_like(flat, dtype=blur_dtype)
+    score = torch.empty_like(flat, dtype=score_dtype)
     i = 0
     while i < len(slabs.slabs):
         off, h, w = slabs.slabs[i]
@@ -144,24 +174,27 @@ def frontend_fused_pyramid_cuda(flat: torch.Tensor, slabs: SlabTable, *,
                                 quantized: bool = True):
     """Launch ``csrc/frontend_fused.cu`` once over every slab."""
     dev = _build.require_cuda(flat, slabs.table)
-    if flat.dtype != torch.float32 or flat.numel() != slabs.total:
-        raise ValueError("dense FE takes the flat float32 slab buffer "
-                         "its SlabTable describes")
-    blur = torch.empty_like(flat)
-    score = torch.empty_like(flat)
+    blur_dtype, score_dtype = out_dtypes(flat, quantized)
+    if flat.numel() != slabs.total:
+        raise ValueError("dense FE takes the flat slab buffer its "
+                         "SlabTable describes")
+    blur = torch.empty_like(flat, dtype=blur_dtype)
+    score = torch.empty_like(flat, dtype=score_dtype)
     max_h = max(h for _, h, _ in slabs.slabs)
     max_w = max(w for _, _, w in slabs.slabs)
     KERNEL(dev, flat.data_ptr(), blur.data_ptr(), score.data_ptr(),
            slabs.table.data_ptr(), len(slabs.slabs), max_h, max_w,
-           float(threshold), int(bool(nms)), int(bool(quantized)))
+           float(threshold), int(bool(nms)), int(bool(quantized)),
+           variant=_build.variant_of(flat))
     return blur, score
 
 
 def frontend_fused_pyramid(flat: torch.Tensor, slabs: SlabTable, *,
                            threshold: float, nms: bool = True,
                            quantized: bool = True):
-    """flat: every slab's pixels, float32, laid out as ``slabs`` says.
-    Returns (blur, score) in the same layout.  A CPU tensor runs the
+    """flat: every slab's pixels, float32 or uint8, laid out as
+    ``slabs`` says.  Returns (blur, score) in the same layout (float32
+    and float32, or uint8 and int16).  A CPU tensor runs the
     plain version; a CUDA tensor launches the kernel."""
     fn = (frontend_fused_pyramid_plain if flat.device.type == "cpu"
           else frontend_fused_pyramid_cuda)
@@ -173,23 +206,24 @@ def frontend_fused_cuda(x: torch.Tensor, *, threshold: float,
                         nms: bool = True, quantized: bool = True):
     """Launch ``csrc/frontend_level.cu`` once over a (B, H, W) level."""
     dev = _build.require_cuda(x)
-    if x.dtype != torch.float32 or x.dim() != 3:
-        raise ValueError("per-level dense FE takes a (B, H, W) float32 "
-                         f"batch, got {x.dtype} {tuple(x.shape)}")
-    blur = torch.empty_like(x)
-    score = torch.empty_like(x)
+    if x.dim() != 3:
+        raise ValueError("per-level dense FE takes a (B, H, W) batch, got "
+                         f"{tuple(x.shape)}")
+    blur_dtype, score_dtype = out_dtypes(x, quantized)
+    blur = torch.empty_like(x, dtype=blur_dtype)
+    score = torch.empty_like(x, dtype=score_dtype)
     b, h, w = x.shape
     if x.numel():
         LEVEL_KERNEL(dev, x.data_ptr(), blur.data_ptr(), score.data_ptr(),
                      b, h, w, float(threshold), int(bool(nms)),
-                     int(bool(quantized)))
+                     int(bool(quantized)), variant=_build.variant_of(x))
     return blur, score
 
 
 def frontend_fused(x: torch.Tensor, *, threshold: float, nms: bool = True,
                    quantized: bool = True):
-    """x: (B, H, W) float32, B images of one level.  Returns (blur,
-    score), each (B, H, W) float32.  A CPU tensor runs the plain
-    version; a CUDA tensor launches the kernel."""
+    """x: (B, H, W) float32 or uint8, B images of one level.  Returns
+    (blur, score), each (B, H, W): float32, or uint8 and int16.  A CPU
+    tensor runs the plain version; a CUDA tensor launches the kernel."""
     fn = frontend_fused_plain if x.device.type == "cpu" else frontend_fused_cuda
     return fn(x, threshold=threshold, nms=nms, quantized=quantized)

@@ -15,6 +15,12 @@ coords, sad (P, K) int32 — SAD argmin in [0, 2 * sad_range]).  The CUDA
 kernel is ``csrc/matcher_fused.cu``; the plain version below is the
 same function in PyTorch, and the wrapper picks it only for a CPU
 tensor.
+
+The level-0 images are float32 or uint8 (the paper's 8-bit datapath);
+the SAD runs in int32 either way, so on an integer-valued frame the two
+variants are bit-equal.  The uint8 variant is the kernel's template
+instantiated for ``uint8_t`` (C entry point ``match_rectify_fused_u8``),
+counted under the kernel's own counter.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ from repro_torch.kernels.match_fused import match_fused_plain
 from repro_torch.kernels.sad_fused import sad_fused_plain
 
 KERNEL = _build.CudaKernel("matcher_fused", "match_rectify_fused",
-                           "ppppppppppiiiiiffiii")
+                           "ppppppppppiiiiiffiii", variants=("f32", "u8"))
 
 
 def match_rectify_fused_plain(desc_l, meta_l, desc_r, meta_r, img_l, img_r,
@@ -54,10 +60,12 @@ def match_rectify_fused_cuda(desc_l, meta_l, desc_r, meta_r, img_l, img_r,
     """Launch ``csrc/matcher_fused.cu`` once over every pair."""
     dev = _build.require_cuda(desc_l, meta_l, desc_r, meta_r, img_l, img_r)
     if (desc_l.dtype != torch.int32 or desc_r.dtype != torch.int32
-            or meta_l.dtype != torch.float32 or img_l.dtype != torch.float32
-            or meta_r.dtype != torch.float32 or img_r.dtype != torch.float32):
-        raise ValueError("fused matcher takes int32 descriptors and "
-                         "float32 meta rows and images")
+            or meta_l.dtype != torch.float32 or meta_r.dtype != torch.float32
+            or img_l.dtype not in (torch.float32, torch.uint8)
+            or img_r.dtype != img_l.dtype):
+        raise ValueError("fused matcher takes int32 descriptors, float32 "
+                         "meta rows and float32 or uint8 images of one "
+                         "type")
     if img_l.shape != img_r.shape:
         raise ValueError("left and right images must share one shape")
     if sad_window > 15 or sad_range > 15:
@@ -76,7 +84,7 @@ def match_rectify_fused_cuda(desc_l, meta_l, desc_r, meta_r, img_l, img_r,
                dist.data_ptr(), idx.data_ptr(), rxy.data_ptr(),
                sad.data_ptr(), n_pairs, k, m, h, w, float(row_band),
                float(max_disparity), int(max_hamming), int(sad_window),
-               int(sad_range))
+               int(sad_range), variant=_build.variant_of(img_l))
     return dist, idx, rxy, sad
 
 
@@ -86,7 +94,7 @@ def match_rectify_fused(desc_l, meta_l, desc_r, meta_r, img_l, img_r, *,
                         sad_range: int = 5):
     """desc_*: (P, K, 8)/(P, M, 8) int32 bit-views; meta_*: (P, K, 4)/
     (P, M, 4) float32 rows of (x, y, level, valid); img_*: (P, H, W)
-    float32 level-0 images.  A CPU tensor runs the plain version; a
+    float32 or uint8 level-0 images.  A CPU tensor runs the plain version; a
     CUDA tensor launches the kernel."""
     fn = (match_rectify_fused_plain if desc_l.device.type == "cpu"
           else match_rectify_fused_cuda)

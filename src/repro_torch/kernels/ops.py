@@ -8,7 +8,10 @@ per-level (B, h, w) batches in, per-level results out) and own the
 layout the kernels take: the flat slab buffer and its ``SlabTable``,
 the level-sorted keypoint block and its column-level vector.  Which
 implementation runs follows the tensors' device (see each kernel
-module): there is no impl switch.
+module): there is no impl switch.  Which datapath runs follows the
+images' dtype, as the JAX package's ``_cast_slab``: float images run as
+float32, integer images as uint8 (the paper's 8-bit datapath, each
+kernel's uint8 variant, counted under the kernel's own counter).
 
 ``launch_audit()`` yields a counter of every kernel launch made inside
 its scope — the port's form of the JAX package's trace-time audit;
@@ -62,19 +65,31 @@ FRAME_KERNELS = ("frontend_fused_pyramid", "describe_fused_pyramid",
                  "match_rectify_fused")
 
 
+def _slab_dtype(images: torch.Tensor) -> torch.dtype:
+    """The kernels' pixel type for ``images``: float32 for float
+    images, uint8 for integer ones."""
+    return torch.float32 if images.dtype.is_floating_point else torch.uint8
+
+
+def _slab(images: torch.Tensor) -> torch.Tensor:
+    return images.to(_slab_dtype(images)).contiguous()
+
+
 def flat_levels(levels) -> torch.Tensor:
-    """The flat slab buffer of a list of (B, h_l, w_l) level batches:
-    a view when the levels already lie back to back in one contiguous
-    buffer (``pyramid.build_pyramid_batched`` allocates them so), else
-    a concatenated copy."""
+    """The flat slab buffer (float32, or uint8 for integer levels) of a
+    list of (B, h_l, w_l) level batches: a view when the levels already
+    lie back to back in one contiguous buffer of that type
+    (``pyramid.build_pyramid_batched`` allocates them so), else a
+    concatenated copy."""
     first = levels[0]
+    dtype = _slab_dtype(first)
     base = first.untyped_storage().data_ptr()
     off = first.storage_offset()
     for lv in levels:
-        if (not lv.is_contiguous() or lv.dtype != torch.float32
+        if (not lv.is_contiguous() or lv.dtype != dtype
                 or lv.untyped_storage().data_ptr() != base
                 or lv.storage_offset() != off):
-            return torch.cat([l.reshape(-1) for l in levels]).float()
+            return torch.cat([l.reshape(-1).to(dtype) for l in levels])
         off += lv.numel()
     return first.as_strided((off - first.storage_offset(),), (1,))
 
@@ -95,9 +110,10 @@ def _slabs_of(levels) -> _frontend.SlabTable:
 
 def fast_blur_nms_pyramid(levels, threshold: float, *, nms: bool = True,
                           quantized: bool = True):
-    """Whole-pyramid dense stage: L ragged (B, h_l, w_l) float32 level
-    batches -> [(blur_l, score_l)] per level, ALL cameras x ALL levels
-    in ONE kernel launch."""
+    """Whole-pyramid dense stage: L ragged (B, h_l, w_l) level batches
+    -> [(blur_l, score_l)] per level (float32 and float32, or uint8 and
+    int16 for integer levels), ALL cameras x ALL levels in ONE kernel
+    launch."""
     flat = flat_levels(levels)
     blur, score = _frontend.frontend_fused_pyramid(
         flat, _slabs_of(levels), threshold=float(threshold), nms=bool(nms),
@@ -105,21 +121,14 @@ def fast_blur_nms_pyramid(levels, threshold: float, *, nms: bool = True,
     return list(zip(_split(blur, levels), _split(score, levels)))
 
 
-def _integer_images(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"integer images take the integer variant of {what}, not ported "
-        "yet (ROADMAP A6)")
-
-
 def fast_blur_nms_batched(imgs: torch.Tensor, threshold: float, *,
                           nms: bool = True, quantized: bool = True):
-    """Per-level dense stage: (B, H, W) float images of one level ->
-    (blur, score), each (B, H, W) float32, in ONE kernel launch."""
-    if not imgs.dtype.is_floating_point:
-        raise _integer_images("the per-level dense FE (K6's uint8 path)")
+    """Per-level dense stage: (B, H, W) images of one level -> (blur,
+    score), each (B, H, W) (float32, or uint8 and int16 for integer
+    images), in ONE kernel launch."""
     return _frontend.frontend_fused(
-        imgs.to(torch.float32).contiguous(), threshold=float(threshold),
-        nms=bool(nms), quantized=bool(quantized))
+        _slab(imgs), threshold=float(threshold), nms=bool(nms),
+        quantized=bool(quantized))
 
 
 def _image_batch(img: torch.Tensor) -> torch.Tensor:
@@ -142,27 +151,24 @@ def gaussian_blur7(img: torch.Tensor, quantized: bool = True) -> torch.Tensor:
 
 def orient_describe_batched(raw: torch.Tensor, smoothed, xy: torch.Tensor):
     """Batched sparse stage for a (B, K) block of keypoints of B images
-    of one shape, ONE launch: (B, H, W) float raw and smoothed images
-    and (B, K, 2) int keypoints (clamped into the image) -> (theta
-    (B, K) float32, moments (B, K, 2) float32, desc (B, K, 8) int32),
-    the per-level sparse FE.  ``smoothed=None`` selects orientation only
-    (``fast.detect``'s path) and gives no descriptor (None)."""
+    of one shape, ONE launch: (B, H, W) raw and smoothed images (both
+    float, or both integer: the uint8 datapath) and (B, K, 2) int
+    keypoints (clamped into the image) -> (theta (B, K) float32, moments
+    (B, K, 2) float32, desc (B, K, 8) int32), the per-level sparse FE.
+    ``smoothed=None`` selects orientation only (``fast.detect``'s path)
+    and gives no descriptor (None)."""
+    xy = xy.to(torch.int32).contiguous()
     if smoothed is None:
-        if not raw.dtype.is_floating_point:
-            raise _integer_images("orientation (K8's uint8 path)")
-        theta, mom = _describe.orient_fused(
-            raw.to(torch.float32).contiguous(),
-            xy.to(torch.int32).contiguous())
+        theta, mom = _describe.orient_fused(_slab(raw), xy)
         return theta, mom, None
-    if not (raw.dtype.is_floating_point
-            and smoothed.dtype.is_floating_point):
-        raise _integer_images("the per-level sparse FE (K7's uint8 path)")
     if raw.shape != smoothed.shape:
         raise ValueError(f"raw {tuple(raw.shape)} and smoothed "
                          f"{tuple(smoothed.shape)} must be one (B, H, W)")
-    return _describe.describe_fused(raw.to(torch.float32).contiguous(),
-                                    smoothed.to(torch.float32).contiguous(),
-                                    xy.to(torch.int32).contiguous())
+    if _slab_dtype(raw) != _slab_dtype(smoothed):
+        raise ValueError(f"raw ({raw.dtype}) and smoothed "
+                         f"({smoothed.dtype}) must both be float or both "
+                         "integer images")
+    return _describe.describe_fused(_slab(raw), _slab(smoothed), xy)
 
 
 @functools.lru_cache(maxsize=32)
@@ -196,8 +202,8 @@ def match_rectify_fused(desc_l, meta_l, desc_r, meta_r, img_l=None,
     """The ENTIRE FM stage of a frame in ONE kernel launch, batched over
     stereo pairs.  desc_*: (P, K, 8)/(P, M, 8) int32 bit-views; meta_*:
     (P, K, 4)/(P, M, 4) float32 rows of (x, y, level, valid); img_*:
-    (P, H, W) level-0 images.  Returns (dist, idx, rxy, sad) as
-    ``matcher_fused.match_rectify_fused``.
+    (P, H, W) level-0 images (float, or integer: the uint8 datapath).
+    Returns (dist, idx, rxy, sad) as ``matcher_fused.match_rectify_fused``.
 
     MATCH-ONLY mode: with ``img_l``/``img_r`` omitted the SAD half is
     skipped and only (dist, idx) return, from the match-only kernel in
@@ -210,8 +216,8 @@ def match_rectify_fused(desc_l, meta_l, desc_r, meta_r, img_l=None,
             max_disparity=float(max_disparity))
     return _matcher.match_rectify_fused(
         desc_l.contiguous(), meta_l.contiguous(), desc_r.contiguous(),
-        meta_r.contiguous(), img_l.float().contiguous(),
-        img_r.float().contiguous(), row_band=float(row_band),
+        meta_r.contiguous(), _slab(img_l), _slab(img_r),
+        row_band=float(row_band),
         max_disparity=float(max_disparity), max_hamming=int(max_hamming),
         sad_window=int(sad_window), sad_range=int(sad_range))
 
@@ -220,11 +226,11 @@ def sad_patch_search(img_l, img_r, xy_l, xy_r, *, sad_window: int = 11,
                      sad_range: int = 5):
     """SAD sweep with in-kernel patch reads for caller-given match
     targets (``sad_rectify``'s path), ONE launch.  img_*: (P, H, W)
-    level-0 images; xy_*: (P, K, 2) float32 window centers.  Returns
-    the (P, K, 2 * sad_range + 1) int32 SAD table; the caller takes the
-    argmin."""
+    level-0 images (float, or integer: the uint8 datapath); xy_*:
+    (P, K, 2) float32 window centers.  Returns the (P, K, 2 * sad_range
+    + 1) int32 SAD table; the caller takes the argmin."""
     return _sad_only.sad_fused(
-        img_l.float().contiguous(), img_r.float().contiguous(),
+        _slab(img_l), _slab(img_r),
         xy_l.float().contiguous(), xy_r.float().contiguous(),
         sad_window=int(sad_window), sad_range=int(sad_range))
 

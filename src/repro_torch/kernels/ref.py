@@ -13,6 +13,13 @@ package's jnp oracles:
   * descriptors are int32 bit-views of uint32 words (torch on the CPU
     has no uint32 shifts); bit ``i`` of a descriptor is bit ``i % 32``
     of word ``i // 32``.
+
+The integer-datapath oracles (the paper's 8-bit word length, Sec. III;
+``gaussian_blur7_u8``, ``fast_score_map_int``, ``fast_blur_nms_int``,
+``patch_theta_int``) take uint8 images,
+accumulate in int32 and return a uint8 blur, an int16 score and int32
+moments, as the JAX package's do.  On integer-valued images each is
+equal in value to its float twin: every sum is an integer below 2**24.
 """
 
 from __future__ import annotations
@@ -83,12 +90,75 @@ def clamped_index(start: torch.Tensor, size: int, limit) -> torch.Tensor:
     return idx.clamp(0, limit - 1)
 
 
+def edge_pad(x: torch.Tensor, r: int) -> torch.Tensor:
+    """(..., H, W) of any dtype -> (..., H + 2r, W + 2r), the edge pixel
+    replicated, by clamped indices (``F.pad``'s replicate mode takes no
+    integer tensor on the card)."""
+    h, w = x.shape[-2:]
+    start = torch.tensor(-r, device=x.device)
+    rows = clamped_index(start, h + 2 * r, h)
+    cols = clamped_index(start, w + 2 * r, w)
+    return x[..., rows[:, None], cols[None, :]]
+
+
+def gaussian_blur7_u8(img: torch.Tensor) -> torch.Tensor:
+    """Integer 7x7 Gaussian: (..., H, W) uint8 -> uint8, int32
+    accumulators and the round-half-up quotient (v + 648) // 1296.
+    v + 648 <= 255 * 1296 + 648 < 2**24, so the float blur's
+    floor((v + 648) / 1296) is the same quotient."""
+    h, w = img.shape[-2:]
+    pad = edge_pad(img.to(torch.int32), 3)
+    wts = [int(v) for v in GAUSS7_WEIGHTS_INT]
+    horiz = sum(wts[k] * pad[..., :, k:k + w] for k in range(7))
+    vert = sum(wts[k] * horiz[..., k:k + h, :] for k in range(7))
+    norm2 = GAUSS7_NORM * GAUSS7_NORM
+    return torch.div(vert + norm2 // 2, norm2,
+                     rounding_mode="floor").to(torch.uint8)
+
+
+def fast_score_map_int(img: torch.Tensor, threshold: float) -> torch.Tensor:
+    """Integer FAST-9/16: (..., H, W) uint8 -> int16 score map.  Taps
+    lie in [-255, 255], so int16 is exact; the threshold compare is
+    against ``int_threshold(threshold)``."""
+    h, w = img.shape[-2:]
+    x = img.to(torch.int32)
+    pad = edge_pad(x, 3)
+    taps = [pad[..., 3 + dy:3 + dy + h, 3 + dx:3 + dx + w] - x
+            for dx, dy in CIRCLE16]
+    ext = taps + taps[:ARC_LEN - 1]
+    bright = dark = None
+    for s in range(len(taps)):
+        mn = mx = ext[s]
+        for j in range(1, ARC_LEN):
+            mn = torch.minimum(mn, ext[s + j])
+            mx = torch.maximum(mx, ext[s + j])
+        bright = mn if bright is None else torch.maximum(bright, mn)
+        dark = mx if dark is None else torch.minimum(dark, mx)
+    score = torch.maximum(bright, -dark)
+    keep = score > int_threshold(threshold)
+    return torch.where(keep, score, torch.zeros_like(score)).to(torch.int16)
+
+
+def fast_blur_nms_int(img: torch.Tensor, threshold: float, *,
+                      nms: bool = True):
+    """uint8 oracle of the dense FE: (..., H, W) uint8 -> (blur uint8,
+    score int16), the integer twins of the float outputs."""
+    score = fast_score_map_int(img, threshold)
+    return gaussian_blur7_u8(img), nms3(score) if nms else score
+
+
 def moment_grids(device=None):
     """The circular-mask moment grids (X_GRID, Y_GRID), float32."""
     r = torch.arange(PATCH, dtype=torch.float32, device=device) - RADIUS
     yy, xx = r[:, None].expand(PATCH, PATCH), r[None, :].expand(PATCH, PATCH)
     mask = (xx * xx + yy * yy <= float(RADIUS * RADIUS)).float()
     return xx * mask, yy * mask
+
+
+def moment_grids_int(device=None):
+    """The moment grids as int32, for the integer moments."""
+    xg, yg = moment_grids(device)
+    return xg.to(torch.int32), yg.to(torch.int32)
 
 
 # Elements of one torch.atan2 call: a multiple of 64, and below torch's
@@ -121,6 +191,18 @@ def patch_theta(patches: torch.Tensor):
     m10 = (patches * xg).sum(dim=(-2, -1))
     m01 = (patches * yg).sum(dim=(-2, -1))
     return atan2(m01, m10), torch.stack([m10, m01], dim=-1)
+
+
+def patch_theta_int(patches: torch.Tensor):
+    """uint8 (..., 31, 31) patches -> (theta (...,) float32, moments
+    (..., 2) int32), int32 accumulators.  |m10|, |m01| <= 255 * 4,528 <
+    2**24, so the moments converted to float32 are exact and theta is
+    ``patch_theta``'s on the same values."""
+    xg, yg = moment_grids_int(patches.device)
+    p = patches.to(torch.int32)
+    m10 = (p * xg).sum(dim=(-2, -1), dtype=torch.int32)
+    m01 = (p * yg).sum(dim=(-2, -1), dtype=torch.int32)
+    return atan2(m01.float(), m10.float()), torch.stack([m10, m01], dim=-1)
 
 
 def theta_to_bin(theta: torch.Tensor) -> torch.Tensor:

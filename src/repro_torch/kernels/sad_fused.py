@@ -11,6 +11,10 @@ Returns the (P, K, 2R + 1) int32 SAD table; the caller takes the
 argmin.  The CUDA kernel is ``csrc/sad_fused.cu``; the plain version
 below is the same function in PyTorch, and the wrapper picks it only
 for a CPU tensor.
+
+The images are float32 or uint8 (the paper's 8-bit datapath; C entry
+point ``sad_fused_u8``, the same template body, counted under the
+kernel's own counter); the SAD is int32 either way.
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import gather_patches, sad_search
 
-KERNEL = _build.CudaKernel("sad_fused", "sad_fused", "pppppiiiiii")
+KERNEL = _build.CudaKernel("sad_fused", "sad_fused", "pppppiiiiii",
+                           variants=("f32", "u8"))
 
 
 def sad_fused_plain(img_l, img_r, xy_l, xy_r, *, sad_window: int = 11,
@@ -37,8 +42,11 @@ def sad_fused_cuda(img_l, img_r, xy_l, xy_r, *, sad_window: int = 11,
                    sad_range: int = 5):
     """Launch ``csrc/sad_fused.cu`` once over every pair."""
     dev = _build.require_cuda(img_l, img_r, xy_l, xy_r)
-    if any(t.dtype != torch.float32 for t in (img_l, img_r, xy_l, xy_r)):
-        raise ValueError("SAD-only kernel takes float32 images and centers")
+    if (xy_l.dtype != torch.float32 or xy_r.dtype != torch.float32
+            or img_l.dtype not in (torch.float32, torch.uint8)
+            or img_r.dtype != img_l.dtype):
+        raise ValueError("SAD-only kernel takes float32 or uint8 images of "
+                         "one type and float32 centers")
     if img_l.shape != img_r.shape:
         raise ValueError("left and right images must share one shape")
     if sad_window > 15 or sad_range > 15:
@@ -51,15 +59,16 @@ def sad_fused_cuda(img_l, img_r, xy_l, xy_r, *, sad_window: int = 11,
     if p * k:
         KERNEL(dev, xy_l.data_ptr(), xy_r.data_ptr(), img_l.data_ptr(),
                img_r.data_ptr(), table.data_ptr(), p, k, h, w,
-               int(sad_window), int(sad_range))
+               int(sad_window), int(sad_range),
+               variant=_build.variant_of(img_l))
     return table
 
 
 def sad_fused(img_l, img_r, xy_l, xy_r, *, sad_window: int = 11,
               sad_range: int = 5):
-    """img_*: (P, H, W) float32 level-0 images; xy_*: (P, K, 2) float32
-    window centers.  A CPU tensor runs the plain version; a CUDA tensor
-    launches the kernel."""
+    """img_*: (P, H, W) float32 or uint8 level-0 images; xy_*: (P, K, 2)
+    float32 window centers.  A CPU tensor runs the plain version; a CUDA
+    tensor launches the kernel."""
     fn = sad_fused_plain if xy_l.device.type == "cpu" else sad_fused_cuda
     return fn(img_l, img_r, xy_l, xy_r, sad_window=sad_window,
               sad_range=sad_range)

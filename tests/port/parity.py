@@ -91,6 +91,39 @@ def textured_levels(seed: int, shapes, b: int = 4, integer: bool = False):
     return out
 
 
+def feed_jax_pyramid(monkeypatch, jcfg, precision: str = "f32"):
+    """Make the port's FE run on the JAX package's pyramid levels:
+    ``pyramid.build_pyramid_batched`` returns the JAX package's levels
+    of whatever images it is given (``precision`` as both packages take
+    it), after holding them to the port's own (level 0 equal, resized
+    levels within a grey level, ``test_torch_pyramid``'s A2 rule), so
+    that every row of every level is compared with the JAX schedule's.
+    Returns the list of the images of each call."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core import pyramid as jpyramid
+    from repro_torch.core import pyramid
+
+    own = pyramid.build_pyramid_batched
+    build = jax.jit(jpyramid.build_pyramid_batched,
+                    static_argnames=("cfg", "precision"))
+    calls = []
+
+    def levels(images, cfg, *, precision=precision):
+        calls.append(images)
+        jlv = build(jnp.asarray(images.numpy()), cfg=jcfg,
+                    precision=precision)
+        for a, b in zip(jlv, own(images, cfg, precision=precision)):
+            assert np.abs(np.asarray(a, np.int32)
+                          - b.numpy().astype(np.int32)).max() <= 1
+        assert np.array_equal(np.asarray(jlv[0]), images.numpy())
+        return [torch.from_numpy(np.array(lv)) for lv in jlv]
+
+    monkeypatch.setattr(pyramid, "build_pyramid_batched", levels)
+    return calls
+
+
 def assert_sparse_parity(theta_a, mom_a, desc_a, theta_b, mom_b, desc_b,
                          patches_abs_sum, integer: bool) -> int:
     """The sparse-FE tolerance rule of the module note, ``a`` the

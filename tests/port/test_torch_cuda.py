@@ -17,7 +17,10 @@ per-level sparse FE bit-equal to the whole-frame sparse FE, and the
 per-level dense FE to the whole-frame one (shared device code), so the
 per-level schedule equals the whole-frame one; a localized frame's pose
 within the CPU tests' pose tolerance (the SVD runs in another library on
-the card)."""
+the card).  The uint8 variants (K1-K3, K5-K8) are held to their plain
+versions by the same rules, and bit-equal to the float kernels on the
+same integer-valued input, theta included (the same ``atan2f`` on the
+same exact moments)."""
 
 import numpy as np
 import pytest
@@ -26,7 +29,8 @@ import torch
 from repro_torch.core import (ORBConfig, PipelineConfig, RigConfig,
                               VisualSystem, extract_features,
                               extract_features_batched,
-                              extract_features_per_level, fast, matching)
+                              extract_features_per_level, fast, matching,
+                              pyramid)
 from repro_torch.core.types import map_fields
 from repro_torch.data import scenes
 from repro_torch.kernels import (describe_fused, fast_detect, frontend_fused,
@@ -359,3 +363,149 @@ def test_per_level_is_two_launches_a_level_and_equals_whole_frame(cuda,
         whole = extract_features_batched(imgs, cfg)
         for name in per._fields:
             assert torch.equal(getattr(per, name), getattr(whole, name)), name
+
+
+def _u8_pyramid(cuda):
+    """The odd 5-level 37 x 53 uint8 pyramid of 3 cameras, and an 18 x 26
+    level (smaller than one tile) of 4."""
+    cfg = ORBConfig(height=37, width=53, max_features=48, n_levels=5)
+    imgs = torch.from_numpy(np.random.RandomState(8).randint(
+        0, 256, (3, 37, 53)).astype(np.uint8)).to(cuda)
+    levels = pyramid.build_pyramid_batched(imgs, cfg, precision="uint8")
+    tiny = torch.from_numpy(np.round(textured_levels(
+        9, [(18, 26)], integer=True)[0]).astype(np.uint8)).to(cuda)
+    return levels, tiny
+
+
+def _variant_step(name):
+    """The (f32, u8) launches of kernel ``name`` so far."""
+    v = ops.KERNELS[name].variant_launches
+    return v["f32"], v["u8"]
+
+
+def test_u8_dense_kernels_equal_plain_and_float(cuda):
+    """K1 over the 5-level pyramid and K6 on each level and on the
+    18 x 26 level: uint8 blur and int16 score bit-equal to the plain
+    version and, in value, to the float kernels on the float copy."""
+    levels, tiny = _u8_pyramid(cuda)
+    for nms in (True, False):
+        kw = dict(threshold=20.0, nms=nms, quantized=True)
+        flat, slabs = ops.flat_levels(levels), ops._slabs_of(levels)
+        assert flat.dtype == torch.uint8
+        before = _variant_step("frontend_fused_pyramid")
+        got = frontend_fused.frontend_fused_pyramid_cuda(flat, slabs, **kw)
+        assert _variant_step("frontend_fused_pyramid") == (before[0],
+                                                           before[1] + 1)
+        want = frontend_fused.frontend_fused_pyramid_plain(flat, slabs, **kw)
+        flt = frontend_fused.frontend_fused_pyramid_cuda(flat.float(), slabs,
+                                                         **kw)
+        assert [t.dtype for t in got] == [torch.uint8, torch.int16]
+        for a, b, c in zip(got, want, flt):
+            assert torch.equal(a, b) and torch.equal(a.float(), c)
+        for x in list(levels) + [tiny]:
+            got = frontend_fused.frontend_fused_cuda(x, **kw)
+            want = frontend_fused.frontend_fused_plain(x, **kw)
+            flt = frontend_fused.frontend_fused_cuda(x.float(), **kw)
+            for a, b, c in zip(got, want, flt):
+                assert torch.equal(a, b) and torch.equal(a.float(), c)
+    with pytest.raises(ValueError, match="quantized=True"):
+        frontend_fused.frontend_fused_cuda(tiny, threshold=20.0,
+                                           quantized=False)
+
+
+@pytest.mark.parametrize("k", [37, 0])
+def test_u8_sparse_kernels_equal_plain_and_float(cuda, k):
+    """K2 over the 5-level pyramid, K7 and K8 on each level and on the
+    18 x 26 level, keypoints up to 8 px past every edge: held to the
+    plain version by the sparse rule, bit-equal to the float kernels.
+    K = 0 gives empty outputs and no launch."""
+    levels, tiny = _u8_pyramid(cuda)
+    dense = ops.fast_blur_nms_pyramid(levels, 20.0)
+    assert dense[0][0].dtype == torch.uint8
+    rng = np.random.RandomState(k)
+
+    def keypoints(b, h, w):
+        return torch.from_numpy(np.stack(
+            [rng.randint(-8, w + 8, (b, k)), rng.randint(-8, h + 8, (b, k))],
+            -1).astype(np.int32)).to(cuda)
+
+    xys = [keypoints(*lv.shape) for lv in levels]
+    xy = torch.cat(xys, 1).contiguous()
+    col = ops._col_levels((k,) * len(levels), str(xy.device))
+    raw, sm = ops.flat_levels(levels), ops.flat_levels([b for b, _ in dense])
+    slabs = ops._slabs_of(levels)
+    before = _variant_step("describe_fused_pyramid")
+    got = describe_fused.describe_fused_pyramid_cuda(raw, sm, slabs, xy, col)
+    assert _variant_step("describe_fused_pyramid")[1] == before[1] + (k > 0)
+    want = describe_fused.describe_fused_pyramid_plain(raw, sm, slabs, xy,
+                                                       col)
+    flt = describe_fused.describe_fused_pyramid_cuda(raw.float(), sm.float(),
+                                                     slabs, xy, col)
+    assert_sparse_parity(*[t.cpu() for t in want], *[t.cpu() for t in got],
+                         None, integer=True)
+    for a, c in zip(got, flt):
+        assert torch.equal(a, c)
+    blur_tiny = frontend_fused.frontend_fused_cuda(tiny, threshold=20.0)[0]
+    for x, smx, xy_l in [(lv, sm_l, xy_l) for lv, (sm_l, _), xy_l in
+                         zip(levels, dense, xys)] + [
+                             (tiny, blur_tiny, keypoints(*tiny.shape))]:
+        got = describe_fused.describe_fused_cuda(x, smx, xy_l)
+        want = describe_fused.describe_fused_plain(x, smx, xy_l)
+        flt = describe_fused.describe_fused_cuda(x.float(), smx.float(),
+                                                 xy_l)
+        assert_sparse_parity(*[t.cpu() for t in want],
+                             *[t.cpu() for t in got], None, integer=True)
+        for a, c in zip(got, flt):
+            assert torch.equal(a, c)
+        th, mom = describe_fused.orient_fused_cuda(x, xy_l)
+        th_p, mom_p = describe_fused.orient_fused_plain(x, xy_l)
+        zeros = torch.zeros(*th.shape, 8, dtype=torch.int32)
+        assert_sparse_parity(th_p.cpu(), mom_p.cpu(), zeros, th.cpu(),
+                             mom.cpu(), zeros, None, integer=True)
+        assert torch.equal(th, got[0]) and torch.equal(mom, got[1])
+
+
+def test_u8_matcher_kernels_equal_plain_and_float(cuda):
+    """K3 and K5 on uint8 images: every output bit-equal to the plain
+    version and to the float kernels on the same integer values."""
+    for case in (dict(seed=0), dict(seed=1, ties=True),
+                 dict(seed=2, half_centers=True)):
+        dl, ml, dr, mr, il, ir = matcher_case(**case)
+        il, ir = np.round(il).astype(np.uint8), np.round(ir).astype(np.uint8)
+        args = [torch.from_numpy(a).to(cuda) for a in
+                (dl.view(np.int32), ml, dr.view(np.int32), mr, il, ir)]
+        kw = dict(row_band=2.0, max_disparity=24.0, max_hamming=64)
+        got = matcher_fused.match_rectify_fused_cuda(*args, **kw)
+        want = matcher_fused.match_rectify_fused_plain(*args, **kw)
+        flt = matcher_fused.match_rectify_fused_cuda(
+            *args[:4], args[4].float(), args[5].float(), **kw)
+        for a, b, c in zip(got, want, flt):
+            assert torch.equal(a, b) and torch.equal(a, c)
+        xy_l = args[1][..., :2].contiguous()
+        xy_r = args[3][:, :ml.shape[1], :2].contiguous()
+        got = sad_fused.sad_fused_cuda(args[4], args[5], xy_l, xy_r)
+        assert torch.equal(got, sad_fused.sad_fused_plain(args[4], args[5],
+                                                          xy_l, xy_r))
+        assert torch.equal(got, sad_fused.sad_fused_cuda(
+            args[4].float(), args[5].float(), xy_l, xy_r))
+
+
+def test_u8_process_frame_is_three_u8_launches_and_equals_f32(cuda):
+    frame, intr = scene_frames()
+    frame = np.round(frame)
+    cfg = ORBConfig(height=96, width=128, max_features=64, max_disparity=64)
+    rig = RigConfig.quad(intr)
+    u8 = VisualSystem(rig, PipelineConfig(orb=cfg, precision="uint8"))
+    f32 = VisualSystem(rig, PipelineConfig(orb=cfg))
+    before = {n: _variant_step(n) for n in ops.FRAME_KERNELS}
+    with ops.launch_audit() as audit:
+        got = u8.process_frame(frame.astype(np.uint8))
+        torch.cuda.synchronize()
+    assert audit.count == 3
+    for n in ops.FRAME_KERNELS:
+        assert _variant_step(n) == (before[n][0], before[n][1] + 1), n
+    want = f32.process_frame(frame)
+    for grp_got, grp_want in zip(got, want):
+        for x, y in zip(grp_got, grp_want):
+            assert torch.equal(x, y)
+    assert min(got.depth.valid.sum(-1).tolist()) > 0

@@ -26,17 +26,16 @@ import pytest
 import torch
 
 from repro.core import orb as jorb
-from repro.core import pyramid as jpyramid
 from repro.core.types import ORBConfig as JORBConfig
 from repro.kernels import ops as jops
 from repro_torch.core import (ORBConfig, extract_features_batched,
-                              extract_features_per_level, pyramid)
+                              extract_features_per_level)
 from repro_torch.kernels import ops
 from repro_torch.kernels.describe_fused import level_patches
 from repro_torch.kernels.ref import moment_grids
 
-from parity import (assert_sparse_parity, bins, desc_u32, np_of,
-                    textured_levels, ulp_diff)
+from parity import (assert_sparse_parity, bins, desc_u32,
+                    feed_jax_pyramid, np_of, textured_levels, ulp_diff)
 
 # (B, (H, W), levels) of the JAX package's whole-frame-vs-per-level test
 CASES = [(1, (64, 96), 1), (2, (70, 111), 3), (4, (96, 128), 2),
@@ -76,28 +75,6 @@ def _abs_sums(raw, xy):
                         (p * yg).abs().sum((-2, -1))], -1).numpy()
 
 
-def _feed_jax_pyramid(monkeypatch, imgs, jcfg, cfg):
-    """Make the port's schedule run on the JAX package's pyramid levels
-    of ``imgs``, so that every row of every level is compared with the
-    JAX schedule's.  (The two pyramids may differ by a grey level in
-    rare pixels of a resized level, ``test_torch_pyramid``'s A2 rule.)
-    Returns the list that counts the calls."""
-    jlv = jax.jit(functools.partial(jpyramid.build_pyramid_batched,
-                                    cfg=jcfg))(jnp.asarray(imgs))
-    own = pyramid.build_pyramid_batched(torch.from_numpy(imgs), cfg)
-    for a, b in zip(jlv, own):
-        assert np.abs(np.asarray(a) - b.numpy()).max() <= 1.0
-    assert np.array_equal(np.asarray(jlv[0]), imgs)
-    calls = []
-
-    def levels(images, c):
-        calls.append(images)
-        return [torch.from_numpy(np.array(lv)) for lv in jlv]
-
-    monkeypatch.setattr(pyramid, "build_pyramid_batched", levels)
-    return calls
-
-
 def _rows(ks, lvl):
     return slice(sum(ks[:lvl]), sum(ks[:lvl + 1]))
 
@@ -111,7 +88,7 @@ def test_per_level_matches_jax_on_integer_images(b, shape, n_levels,
     jcfg, cfg = _cfgs(shape, n_levels)
     want = _jax_per_level(imgs, jcfg)
     own = extract_features_per_level(torch.from_numpy(imgs), cfg)
-    fed = _feed_jax_pyramid(monkeypatch, imgs, jcfg, cfg)
+    fed = feed_jax_pyramid(monkeypatch, jcfg)
     with ops.launch_audit() as audit:
         got = extract_features_per_level(torch.from_numpy(imgs), cfg)
     assert audit.count == 0               # the CPU runs the plain versions
@@ -146,7 +123,7 @@ def test_per_level_matches_jax_on_float_images(monkeypatch):
         calls.append(((raw, smoothed, xy), out))
         return out
 
-    fed = _feed_jax_pyramid(monkeypatch, imgs, jcfg, cfg)
+    fed = feed_jax_pyramid(monkeypatch, jcfg)
     monkeypatch.setattr(ops, "orient_describe_batched", record)
     got = extract_features_per_level(torch.from_numpy(imgs), cfg)
     assert len(fed) == 1 and len(calls) == n_levels

@@ -204,15 +204,27 @@ def test_eager_shape_and_dtype_errors_match_jax(jax_session, images, err):
 
 
 def test_later_slices_raise_not_implemented():
-    for kw in (dict(precision="uint8"), dict(schedule="pipelined")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PipelineConfig(**kw)
+    """The pipelined schedule and the fleet entry points (ROADMAP A5)
+    raise; ``precision="uint8"`` (A6, ported) constructs, and its frame
+    equals the f32 session's on the same integer-valued frame."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PipelineConfig(schedule="pipelined")
     vs = _port_session()
     for entry in (vs.process_fleet, vs.run_fleet):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             entry(np.zeros((1, 4, H, W), np.float32))
     with pytest.raises(ValueError):
         PipelineConfig(precision="f16")
+    u8 = VisualSystem(vs.rig, PipelineConfig(orb=ORBConfig(**OCFG),
+                                             precision="uint8"),
+                      device="cpu")
+    frame = _frame(True)
+    got = u8.process_frame(frame.astype(np.uint8))
+    want = vs.process_frame(frame)
+    for grp_got, grp_want in zip(got, want):
+        for x, y in zip(grp_got, grp_want):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+    assert min(np_of(got.depth.valid).sum(-1)) > 0
 
 
 def test_sessions_default_to_the_card():

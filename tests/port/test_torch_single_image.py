@@ -248,29 +248,59 @@ def test_detect_pinned_to_extract_features(kind):
     assert torch.equal(valid, feats.valid)
 
 
+def _u8_input():
+    """A 48 x 64 integer-valued image as uint8 and as float32, its
+    config and 24 keypoints (some outside the image, clamped)."""
+    img = torch.from_numpy(_image((48, 64), "integer", seed=11).copy())
+    rng = np.random.default_rng(2)
+    xy = torch.from_numpy(np.stack([rng.integers(-4, 68, 24),
+                                    rng.integers(-4, 52, 24)], -1)
+                          .astype(np.int32))[None]
+    cfg = ORBConfig(height=48, width=64, max_features=32)
+    return img.to(torch.uint8), img, cfg, xy
+
+
 def _raises_cases():
-    img = torch.zeros(16, 16)
-    xy = torch.zeros(1, 4, 2, dtype=torch.int32)
-    cfg = ORBConfig(height=16, width=16)
-    u8 = img[None].to(torch.uint8)
+    """Each case: the later slice it belonged to, in brackets, and a
+    call.  The A5 calls raise; the A6 ones (the uint8 datapath, ported
+    since) return (the uint8 call's outputs, the float32 call's on the
+    same integer-valued image)."""
+    cfg16 = ORBConfig(height=16, width=16)
+    u8, f32, cfg, xy = _u8_input()
+
+    def both(fn):
+        return lambda: (fn(u8), fn(f32))
+
+    def sparse(im):
+        blur, _ = ops.fast_blur_nms_batched(im[None], 20.0)
+        return ops.orient_describe_batched(im[None], blur, xy)
+
     return {
-        "uint8 orientation (A6)": lambda: ops.orient_describe_batched(
-            u8, None, xy),
-        "uint8 per-level dense FE (A6)": lambda: ops.fast_blur_nms_batched(
-            u8, 20.0),
-        "uint8 per-level sparse FE (A6)": lambda: ops.orient_describe_batched(
-            u8, u8, xy),
-        "uint8 extract_features_per_level (A6)":
-            lambda: extract_features_per_level(img[None], cfg,
-                                               precision="uint8"),
-        "uint8 orientations (A6)": lambda: fast.orientations(
-            img.to(torch.uint8), xy[0]),
-        "uint8 pyramid (A6)": lambda: pyramid.build_pyramid(
-            img, cfg, precision="uint8"),
-        "uint8 extract_features (A6)": lambda: extract_features(
-            img, cfg, precision="uint8"),
-        "run_sequence_pipelined (A5)": lambda: _pipelined(cfg),
+        "uint8 orientation (A6)": both(
+            lambda im: ops.orient_describe_batched(im[None], None, xy)[:2]),
+        "uint8 per-level dense FE (A6)": both(
+            lambda im: ops.fast_blur_nms_batched(im[None], 20.0)),
+        "uint8 per-level sparse FE (A6)": both(sparse),
+        "uint8 extract_features_per_level (A6)": lambda: (
+            extract_features_per_level(u8[None], cfg, precision="uint8"),
+            extract_features_per_level(f32[None], cfg)),
+        "uint8 orientations (A6)": both(
+            lambda im: (fast.orientations(im, xy[0]),)),
+        "uint8 pyramid (A6)": lambda: (
+            pyramid.build_pyramid(u8, cfg, precision="uint8"),
+            pyramid.build_pyramid(f32, cfg)),
+        "uint8 extract_features (A6)": lambda: (
+            extract_features(u8, cfg, precision="uint8"),
+            extract_features(f32, cfg)),
+        "run_sequence_pipelined (A5)": lambda: _pipelined(cfg16),
     }
+
+
+#: The uint8 datapath's own dtypes, where they differ from float32's.
+U8_DTYPES = {
+    "uint8 per-level dense FE (A6)": (torch.uint8, torch.int16),
+    "uint8 pyramid (A6)": (torch.uint8, torch.uint8),
+}
 
 
 def _pipelined(cfg):
@@ -281,9 +311,22 @@ def _pipelined(cfg):
 
 @pytest.mark.parametrize("case", list(_raises_cases()))
 def test_later_slices_raise_not_implemented(case):
+    """A5's cases raise ``NotImplementedError`` naming the roadmap item.
+    A6's, ported since, run: the uint8 call equals the float32 call on
+    the same integer-valued image, value for value, in the uint8
+    datapath's dtypes (uint8 levels and blur, int16 score) and in
+    float32 for theta, moments and every FeatureSet field."""
     item = case[case.rindex("(") + 1:-1]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        _raises_cases()[case]()
+    if item == "A5":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            _raises_cases()[case]()
+        return
+    got, want = _raises_cases()[case]()
+    assert len(got) == len(want) > 0
+    dtypes = U8_DTYPES.get(case, [w.dtype for w in want])
+    for g, w, dt in zip(got, want, dtypes):
+        assert g.dtype == dt
+        assert torch.equal(g.to(w.dtype), w)
 
 
 @pytest.mark.parametrize("call", [pyramid.build_pyramid, extract_features],
