@@ -8,13 +8,19 @@ failure (the script then exits non-zero and prints no result):
 
   1. the card's name and power limit (``nvidia-smi``);
   2. build every hand-written kernel from ``src/repro_torch/kernels/csrc``
-     (one ``nvcc`` per source, in parallel) and print the seconds taken;
+     (one ``nvcc`` per source, in parallel) and print the seconds taken,
+     each kernel's registers and spills (``ptxas -v``) and each dense FE
+     instantiation's SASS instruction mix (``cuobjdump -sass``: FMNMX,
+     IMNMX, VIMNMX, VIMNMX3, LDS);
   3. hold each frame kernel against its plain PyTorch version on the
      card, at the main path's shapes, on a 720p quad scene — once with
      integer-valued frames (as a uint8 camera delivers them) and once
      with the float frames as rendered — and time both with CUDA events
      (median of 20 runs after warm-up): the dense FE (K1), the sparse FE
-     (K2) and the fused matcher (K3);
+     (K2) and the fused matcher (K3).  The dense FE family's bounds (K1,
+     K6, K11) count each instruction class at its pipe's rate and the
+     FAST arc extrema only on the pixels that pass the kernels' exact
+     pre-test, whose count is printed;
   4. drive ``VisualSystem.process_frame`` on a 4 x 720 x 1280 quad frame
      at the paper's configuration (``PipelineConfig()`` defaults) with
      every launch count set to 0 just before: exactly one launch of each
@@ -163,6 +169,8 @@ import dataclasses
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -192,6 +200,17 @@ FP32_OPS_PER_S = 67e12
 # rate for the DPX min/max (sm_90); the counts below take it as this
 # rate, which bounds every kernel that runs DPX no faster than IMNMX.
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# The dense FE family (K1, K6, K11) is counted instruction by instruction
+# at its pipe's rate, from the same table for compute capability 9.0, in
+# results a clock per SM x 132 SMs x 1.98 GHz: "32-bit floating-point
+# add, multiply, multiply-add" 128 (FP32_INSTR_PER_S: FADD, FMUL and FFMA
+# one instruction each), "compare, minimum, maximum" 64 (MINMAX_PER_S:
+# FMNMX, FSETP, FSEL, FCHK) and "32-bit floating-point reciprocal" 16
+# (MUFU_PER_S).  The classes' times are summed, as ``bound_ms`` sums the
+# float and integer terms.
+FP32_INSTR_PER_S = 128 * 132 * 1.98e9
+MINMAX_PER_S = 64 * 132 * 1.98e9
+MUFU_PER_S = 16 * 132 * 1.98e9
 REPS = 20
 # gamma_961 = n u / (1 - n u) of a 961-term float32 sum, u = 2**-24.
 GAMMA_961 = 961 * 2.0 ** -24 / (1 - 961 * 2.0 ** -24)
@@ -207,6 +226,51 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+# The instructions whose static counts show the dense FE's design in its
+# SASS: float min/max (the van Herk arc extrema), integer and DPX min/max
+# (the uint8 datapath's packed 16-bit lanes) and shared-memory loads.
+SASS_OPS = ("FMNMX", "IMNMX", "VIMNMX", "VIMNMX3", "LDS")
+DENSE_SOURCES = ("frontend_fused", "frontend_level", "fast_detect")
+
+
+def sass_mix() -> None:
+    """Log each dense FE instantiation's static instruction mix (counts
+    of SASS_OPS in ``cuobjdump -sass`` of its built library).  Nothing
+    passes or fails on it; without ``cuobjdump`` it logs that."""
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        log("[sass] cuobjdump not found: instruction mix not logged")
+        return
+    for stem in DENSE_SOURCES:
+        out = subprocess.run([tool, "-sass", _build._LIBS[stem]._name],
+                             capture_output=True, text=True, timeout=120)
+        if out.returncode != 0:
+            log(f"[sass {stem}] cuobjdump failed: {out.stderr.strip()[:200]}")
+            continue
+        counts, fn = {}, None
+        for line in out.stdout.splitlines():
+            head = re.search(r"Function : (\S+)", line)
+            if head:
+                m = re.search(r"([a-z_]+_kernel)(?:I([fh])E)?", head.group(1))
+                fn = (f"{m.group(1)}<{dict(f='float', h='uint8')[m.group(2)]}>"
+                      if m and m.group(2) else m.group(1) if m
+                      else head.group(1))
+                counts[fn] = {}
+                continue
+            ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                           r"([A-Z][A-Z0-9_]*)", line)
+            if ins and fn is not None:
+                op = ins.group(1)
+                if op != "NOP":
+                    counts[fn][op] = counts[fn].get(op, 0) + 1
+        for fn, c in counts.items():
+            log(f"[sass {stem}] {fn}: "
+                + ", ".join(f"{op} {c.get(op, 0)}" for op in SASS_OPS)
+                + f" of {sum(c.values())} instructions")
 
 
 def time_ms(fn, reps: int = REPS) -> float:
@@ -227,12 +291,17 @@ def time_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, n_ops: float, int_ops: float = 0.0):
+def bound_ms(n_bytes: float, n_ops: float = 0.0, int_ops: float = 0.0, *,
+             pipes: tuple = (0.0, 0.0, 0.0)):
     """(ms, "bytes" or "operations"): the larger of ``n_bytes`` at the
     HBM rate and the operations, ``n_ops`` at the float32 rate plus
-    ``int_ops`` at the int32 rate."""
+    ``int_ops`` at the int32 rate plus ``pipes``, the (FP32, min/max,
+    MUFU) instruction counts at their pipes' rates."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (n_ops / FP32_OPS_PER_S + int_ops / INT32_OPS_PER_S) * 1e3
+    fp32, minmax, mufu = pipes
+    t_ops = (n_ops / FP32_OPS_PER_S + int_ops / INT32_OPS_PER_S
+             + fp32 / FP32_INSTR_PER_S + minmax / MINMAX_PER_S
+             + mufu / MUFU_PER_S) * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
 
 
@@ -283,21 +352,50 @@ def footprint(shape_hw, xs, ys, kh: int, kw: int, device) -> int:
     return int(cover.sum().item())
 
 
-# Float operations a pixel of the dense FE needs, counted on the JAX
-# package's algorithm: blur 2 x (7 mul + 6 add) + add, div, floor (29);
-# FAST 16 tap differences + van Herk arc extrema (42 + 42 + 28) + 30
-# running max/min + 2 + threshold 2 (162); separable NMS 4 max + 3 (7).
-DENSE_OPS_PER_PIXEL = 29 + 162 + 7
+# FAST-9/16 a pixel, by pipe, on the cheaper of two bit-equal schedules
+# for each part.  The arc extrema: the JAX package's (frontend_fused.py
+# arc_extrema and fast_score_from_taps: van Herk prefix 21 + 21, suffix
+# 21 + 21 and 14 + 14 joins, then the 15 + 15 running extrema over the
+# arcs, 142 in all) or this port's (frontend_common.cuh arc_extrema: 59
+# a side, 118), so 118 two-input min/max.  The differences: 16 tap
+# subtractions on the reference's schedule, or 2 on the raw-tap extrema
+# (the centre subtracted once a side, bit-equal because rounding is
+# monotone; tests/port/test_torch_fast_schedule.py), so 2 FP32.  Then
+# max(bright, -dark) (the negation an operand modifier), the threshold
+# compare and select (min/max class: 118 + 3 = 121).
+FAST_EXTREMA_PER_PIXEL = min(112 + 30, 2 * 59)
+FAST_PIPES_PER_PIXEL = (2, FAST_EXTREMA_PER_PIXEL + 1 + 2, 0)
+# The exact pre-test a pixel (frontend_common.cuh fast_live): the second
+# largest and second smallest of the 4 compass taps (8 min/max), two
+# subtractions, two compares and their or.  Work that depends on the
+# data is counted as this run's data needs it: the bound is the smaller
+# of FAST_PIPES_PER_PIXEL on every pixel and the pre-test on every
+# pixel plus FAST_PIPES_PER_PIXEL on the pixels that pass it
+# (``live_pixels``).
+FAST_PRETEST_PIPES = (2, 8 + 2 + 1, 0)
+# The rest of the dense FE (K1, K6) a pixel, float: the blur's two passes
+# of 7 multiplies and 6 adds, the norm's add and floor, the IEEE divide
+# as its sm_90 sequence (MUFU.RCP, 5 FFMA, FCHK), and the NMS's multiply
+# by (cs > 0) (FP32: 26 + 2 + 5 + 1 = 34); the separable NMS's 4 maxima,
+# its 2 compares and select, and FCHK (min/max: 8); the reciprocal (MUFU:
+# 1).  FAST comes on top, as above.
+BLUR_NMS_PIPES_PER_PIXEL = (26 + 2 + 5 + 1, 8, 1)
 # The uint8 variant's, in int32 instructions (one result each at
-# INT32_OPS_PER_S): the blur's 2 x 6 multiply-adds (IMAD or LEA; the
-# first tap is the accumulator) and the quotient by 1296 (IMAD.HI and a
-# shift; the + 648 rides in an IADD3) (14); FAST's 142 two-input
+# INT32_OPS_PER_S): the blur's horizontal pass, 6 multiply-adds (IMAD or
+# LEA; the first tap is the accumulator) on a 32-bit word that holds two
+# pixels' sums in 16-bit lanes (at most 255 x 36 = 9180, no carry
+# between them), so 3 a pixel; its vertical pass, 6 a pixel in int32
+# (the sums reach 330,480); the quotient by 1296 (IMAD.HI and a shift;
+# the + 648 rides in an IADD3) (2); NMS's 4 maxima at a quarter and 3
+# more (4): 15 on every pixel.  FAST's FAST_EXTREMA_PER_PIXEL two-input
 # extrema at a quarter each, since the DPX three-input min/max on packed
-# s16x2 lanes (the differences lie in [-255, 255]) does four at once,
-# with the 16 tap differences fused into them (DPX add-min/max), then
-# max(bright, -dark), threshold compare and select (4) (39.5); NMS's 4
-# maxima at a quarter and 3 more (4).
-DENSE_INT_OPS_PER_PIXEL = 14 + (142 / 4 + 4) + (4 / 4 + 3)
+# 16-bit lanes does four at once (on raw taps in [0, 255], the centre
+# subtracted once a side), then max(bright, -dark), threshold compare
+# and select (4) (FAST_INT_OPS_PER_PIXEL, 33.5); the pre-test's 8
+# min/max at a quarter and 3 more (5).
+DENSE_INT_OPS_PER_PIXEL = 6 / 2 + 6 + 2 + (4 / 4 + 3)
+FAST_INT_OPS_PER_PIXEL = FAST_EXTREMA_PER_PIXEL / 4 + 4
+FAST_INT_PRETEST_OPS = 8 / 4 + 3
 # Sparse FE a keypoint: 709 masked pixels x (2 mul + 2 add), atan2
 # (~20), bin (4), 256 compares.  On the uint8 variant the moments are
 # 709 x 2 IMAD and the compares 256 int32 instructions
@@ -426,17 +524,57 @@ def sparse_bound(pairs):
     return bound_ms(n_bytes, n_kp * SPARSE_OPS_PER_KP)
 
 
-def dense_bound(x, blur, score):
+def live_pixels(x: torch.Tensor, threshold: float, slabs=None) -> int:
+    """Pixels of ``x`` ((B, h, w) images, or the flat buffer of
+    ``slabs``) that pass the dense FE's exact FAST pre-test: the second
+    largest compass tap minus the centre above ``threshold`` or the
+    second smallest below -``threshold`` (``frontend_common.cuh``
+    ``fast_live``; on uint8 pixels the same set, the differences being
+    integers)."""
+    if slabs is not None:
+        return sum(live_pixels(x[off:off + h * w].view(1, h, w), threshold)
+                   for off, h, w in slabs.slabs)
+    h, w = x.shape[-2:]
+    xf = x.float().reshape(-1, h, w)
+    pad = F.pad(xf[:, None], (3, 3, 3, 3), mode="replicate")[:, 0]
+    a, b, c, d = (pad[:, 3 + dy:3 + dy + h, 3 + dx:3 + dx + w]
+                  for dx, dy in ((0, -3), (3, 0), (0, 3), (-3, 0)))
+    lo = torch.minimum(torch.maximum(a, b), torch.maximum(c, d))
+    hi = torch.maximum(torch.minimum(a, b), torch.minimum(c, d))
+    live = ((torch.maximum(lo, hi) - xf > threshold)
+            | (-(torch.minimum(lo, hi) - xf) > threshold))
+    return int(live.sum())
+
+
+def fast_bound(n_bytes: int, n: int, n_live: int, base=(0, 0, 0)):
+    """(bound ms, by) of FAST on ``n`` pixels, ``n_live`` of them passing
+    the pre-test, on top of ``base`` (FP32, min/max, MUFU) instructions:
+    the smaller of the reference's schedule on every pixel and the
+    pre-test on every pixel with the schedule on the live ones."""
+    full = [b + n * f for b, f in zip(base, FAST_PIPES_PER_PIXEL)]
+    pre = [b + n * p + n_live * f for b, p, f in
+           zip(base, FAST_PRETEST_PIPES, FAST_PIPES_PER_PIXEL)]
+    return min(bound_ms(n_bytes, pipes=tuple(full)),
+               bound_ms(n_bytes, pipes=tuple(pre)))
+
+
+def dense_bound(x, blur, score, n_live: int):
     """(bound ms, by) of the dense FE on pixels ``x`` with outputs
-    ``blur`` and ``score``: each read or written once at its element
-    size; DENSE_OPS_PER_PIXEL at the float32 rate, or on uint8 pixels
-    DENSE_INT_OPS_PER_PIXEL at the int32 rate."""
+    ``blur`` and ``score``, ``n_live`` pixels passing the FAST pre-test:
+    each read or written once at its element size; the blur and NMS
+    (BLUR_NMS_PIPES_PER_PIXEL) and FAST (``fast_bound``) at the pipes'
+    rates, or on uint8 pixels DENSE_INT_OPS_PER_PIXEL and FAST's
+    FAST_INT_OPS_PER_PIXEL (on the live pixels after the pre-test, if
+    smaller) at the int32 rate."""
     n = x.numel()
     n_bytes = n * (x.element_size() + blur.element_size()
                    + score.element_size())
     if x.dtype == torch.uint8:
-        return bound_ms(n_bytes, 0, n * DENSE_INT_OPS_PER_PIXEL)
-    return bound_ms(n_bytes, n * DENSE_OPS_PER_PIXEL)
+        fast = min(n * FAST_INT_OPS_PER_PIXEL,
+                   n * FAST_INT_PRETEST_OPS + n_live * FAST_INT_OPS_PER_PIXEL)
+        return bound_ms(n_bytes, 0, n * DENSE_INT_OPS_PER_PIXEL + fast)
+    return fast_bound(n_bytes, n, n_live,
+                      tuple(n * c for c in BLUR_NMS_PIPES_PER_PIXEL))
 
 
 def pyramid_pairs(raw, slabs, xy, col):
@@ -492,8 +630,54 @@ def check_dense(levels, cfg, kind: str):
         plain_ms=time_ms(lambda: fe.frontend_fused_pyramid_plain(
             flat, slabs, **kw)),
         max_abs_err=err)
-    stats["bound_ms"], stats["bound_by"] = dense_bound(flat, blur_k, score_k)
+    n_live = live_pixels(flat, kw["threshold"], slabs)
+    stats["bound_ms"], stats["bound_by"] = dense_bound(flat, blur_k, score_k,
+                                                       n_live)
+    every = dense_bound(flat, blur_k, score_k, flat.numel())
+    log(f"[dense FE/{kind}] {n_live} of {flat.numel()} pixels pass the "
+        f"FAST pre-test; bound {stats['bound_ms']:.6f} ms "
+        f"({stats['bound_by']}), {every[0]:.6f} ms ({every[1]}) were every "
+        "pixel to pass")
+    stats["fast_live_share"] = n_live / flat.numel()
+    stats["device_ms"] = device_ms(
+        lambda: fe.frontend_fused_pyramid_cuda(flat, slabs, **kw),
+        "frontend_kernel")
     return stats
+
+
+# The rendered scene is flat between its landmarks, so under 1% of its
+# pixels pass the dense FE's FAST pre-test.  Two textured 720p frames
+# show the other end: the scene with seeded Gaussian sensor noise of
+# TEXTURE_NOISE_DN grey levels (about a tenth of the pixels pass, so
+# nearly every warp runs the arc extrema), and uniform random texture.
+TEXTURE_NOISE_DN = 8.0
+
+
+def textured_frames(frame: np.ndarray, seed: int = 0) -> dict:
+    """{name: (4, H, W) integer-valued float32 frame} of ``frame``."""
+    rng = np.random.default_rng(seed)
+    noisy = np.round(frame + rng.normal(0.0, TEXTURE_NOISE_DN, frame.shape))
+    return {"noisy": np.clip(noisy, 0, 255).astype(np.float32),
+            "uniform": rng.integers(0, 256, frame.shape).astype(np.float32)}
+
+
+def check_dense_textured(frame: np.ndarray, cfg, dev) -> dict:
+    """K1 and K1-u8 held to their plain versions and timed (``check_dense``)
+    on each of ``textured_frames(frame)``: {"<frame>_<f32|u8>": stats}."""
+    from repro_torch.core import pyramid
+    out = {}
+    for name, img in textured_frames(frame).items():
+        images = torch.from_numpy(img).to(dev)
+        for variant, prec, x in (("f32", "f32", images),
+                                 ("u8", "uint8", images.to(torch.uint8))):
+            levels = pyramid.build_pyramid_batched(x, cfg, precision=prec)
+            st = check_dense(levels, cfg, f"{name} {variant}")
+            log(f"[dense FE/{name} {variant}] {st['ms']:.4f} ms event, "
+                f"device {st['device_ms']}, live share "
+                f"{st['fast_live_share']:.4f}, bound {st['bound_ms']:.6f} "
+                f"({st['bound_by']})")
+            out[f"{name}_{variant}"] = st
+    return out
 
 
 def check_sparse(levels, dense, cfg, kind: str, integer: bool):
@@ -872,13 +1056,6 @@ def close_poses(a, b, atol: float, what: str) -> float:
 
 # Float operations a pixel of the standalone FAST score map, counted on
 # the cheapest algorithm known for it (not on K11's brute force, 306):
-# 16 tap differences; for each of the two extrema (min for the bright
-# arcs, max for the dark ones) the 16 circular 9-tap windows by van
-# Herk / Gil-Werman over the ring unrolled to 24 taps in blocks of 9
-# (suffix runs 8 + 8, prefix runs 7 + 5, 14 joins) and 15 more for the
-# extremum over the arcs; then max(bright, -dark) (the negation is an
-# operand modifier), the threshold compare and the select.
-FAST_OPS_PER_PIXEL = 16 + 2 * (8 + 8 + 7 + 5 + 14 + 15) + 3
 # The 7x7 blur a pixel: two passes of 7 multiplies and 6 adds, then the
 # norm's add, divide and floor.
 BLUR_OPS_PER_PIXEL = 2 * 13 + 3
@@ -1087,7 +1264,8 @@ def single_image_phase(frame, cfg, dev):
     for name, fn, plain, symbol, bound, lib in (
             ("fast_score_map", lambda: fd.fast_score_map_cuda(x, thr_in),
              lambda: fast_score_plain(x, thr_in), "fast_kernel",
-             bound_ms(n * 2 * x.element_size(), n * FAST_OPS_PER_PIXEL),
+             fast_bound(n * 2 * x.element_size(), n,
+                        live_pixels(x, thr_in)),
              None),
             ("gaussian_blur7", lambda: gb.gaussian_blur7_cuda(x, True),
              lambda: blur_plain(x, True), "blur_kernel",
@@ -1553,17 +1731,18 @@ def per_level_phase(frame, cfg, dev):
     for name, calls, cuda, plain, symbol, err, bound in (
             ("frontend_fused", f6, fe.frontend_fused_cuda,
              fe.frontend_fused_plain, "frontend_level_kernel", err6,
-             lambda args, out: dense_bound(args[0], *out)),
+             lambda args, kw, out: dense_bound(
+                 args[0], *out, live_pixels(args[0], kw["threshold"]))),
             ("describe_fused", f7, de.describe_fused_cuda,
              de.describe_fused_plain, "describe_level_kernel", err7,
-             lambda args, out: sparse_bound([(args[0], args[2])]))):
+             lambda args, kw, out: sparse_bound([(args[0], args[2])]))):
         per = []
         for args, kw, out in calls:
             per.append(dict(
                 ms=time_ms(lambda: cuda(*args, **kw)),
                 device_ms=device_ms(lambda: cuda(*args, **kw), symbol),
                 plain_ms=time_ms(lambda: plain(*args, **kw)),
-                bound=bound(args, out)))
+                bound=bound(args, kw, out)))
         st = dict(per[0], max_abs_err=err, bound_ms=per[0]["bound"][0],
                   bound_by=per[0]["bound"][1])
         del st["bound"]
@@ -1873,7 +2052,9 @@ def uint8_phase(frame, intr, seq_rig, seq_frames, seq_poses, cfg, dev):
 
     def bound_of(name, args, kw, out):
         if name in ("frontend_fused_pyramid", "frontend_fused"):
-            return dense_bound(args[0], *out)
+            slabs = args[1] if name == "frontend_fused_pyramid" else None
+            return dense_bound(args[0], *out, live_pixels(
+                args[0], kw["threshold"], slabs))
         if name == "describe_fused_pyramid":
             return sparse_bound(pyramid_pairs(args[0], args[2], args[3],
                                               args[4]))
@@ -1968,6 +2149,7 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[ptxas {stem}] {line.strip()}")
+    sass_mix()
 
     # 3. kernels against their plain versions, 720p quad scene
     cfg = ORBConfig()
@@ -1990,6 +2172,8 @@ def main() -> int:
             f"{dense_stats['plain_ms']:.4f}), sparse {sparse_stats['ms']:.4f}"
             f" ms (plain {sparse_stats['plain_ms']:.4f}), matcher "
             f"{match_stats['ms']:.4f} ms (plain {match_stats['plain_ms']:.4f})")
+
+    textured = check_dense_textured(frame, cfg, dev)
 
     # 4. the main path through the session entry point
     vs = VisualSystem(RigConfig.quad(intr), PipelineConfig(), device="cuda")
@@ -2137,6 +2321,10 @@ def main() -> int:
             "ms_integer_frames": results["integer"][i]["ms"],
             "profiled_device_ms": prof[0] if prof else None,
         })
+    kernels[0]["textured"] = {
+        name: {k: st[k] for k in ("ms", "device_ms", "bound_ms", "bound_by",
+                                  "fast_live_share")}
+        for name, st in textured.items()}
     for name, source, replaces, st, n, extra in (
             ("match_fused", "src/repro_torch/kernels/csrc/match_fused.cu",
              "src/repro/kernels/matcher_fused.py:239", mo_frame,

@@ -8,17 +8,22 @@
 // elsewhere.  Taps past the border replicate the edge pixel.
 //
 // Bound on an H100 SXM for one 720 x 1280 level: 0.92 M pixels read
-// once and written once (7.4 MB, 2.2 us at 3.35 TB/s) against about 306
-// float operations a pixel (16 differences, 16 arcs of 8 min and 8 max,
-// the running extrema and the threshold: 0.28 G, 4.2 us at 67 TFLOP/s),
-// so the kernel is bound by operations.
+// once and written once (7.4 MB, 2.2 us at 3.35 TB/s) against the
+// cheaper of the reference's schedule and this one, counted at each
+// instruction's pipe rate (chip_smoke.py, FAST_PIPES_PER_PIXEL): 2 float
+// subtractions at 128 a clock per SM and 121 compare/min/max at 64 (the
+// arc extrema 118), 6.7 us.  The extrema are needed only where the exact pre-test
+// passes (under 1% of the rendered scene's pixels; the pre-test itself
+// 0.7 us), so on such images the kernel is bound by bytes.
 //
-// Design: one 256-thread block per (image, 32x32 output tile), as K1
+// Design: one 256-thread block per (image, 32x32 output tile), as K12
 // tiles; the tile plus a halo of 3 is loaded into shared memory with
 // clamped reads (the reference's edge pad, so the TPU's tile-aligned
 // padded copy and its Unblocked halo windows are gone), and each thread
 // scores its pixels with frontend_common.cuh's fast_score, the same
-// device function K1 runs.
+// device function K1 runs: the compass pre-test, then the van Herk arc
+// extrema on the raw taps (59 FMNMX a side), the centre subtracted once
+// a side.
 #include "frontend_common.cuh"
 
 namespace {

@@ -20,7 +20,11 @@ within the CPU tests' pose tolerance (the SVD runs in another library on
 the card).  The uint8 variants (K1-K3, K5-K8) are held to their plain
 versions by the same rules, and bit-equal to the float kernels on the
 same integer-valued input, theta included (the same ``atan2f`` on the
-same exact moments)."""
+same exact moments).  On adversarial frames (plateaus, ties, signed
+zeros, values one ulp about centre +- threshold, large and subnormal
+magnitudes, uint8 0 and 255) and shapes about the 62 x 62 dense tile,
+the dense kernels are bit-equal as float32 bit patterns, so signed
+zeros count."""
 
 import numpy as np
 import pytest
@@ -64,6 +68,101 @@ def test_dense_kernel_equals_plain(cuda, integer):
         want = frontend_fused.frontend_fused_pyramid_plain(flat, slabs, **kw)
         for a, b in zip(got, want):
             assert torch.equal(a, b)
+
+
+# Shapes about the dense tile (62 x 62 outputs, a 64 x 64 FAST rim):
+# smaller than one tile, one edge shorter than a tile, partial tiles on
+# both edges, three tile rows on a 61-wide level.
+DENSE_SHAPES = [(7, 7), (18, 26), (33, 65), (37, 53), (130, 61)]
+
+
+def adversarial_frames(seed: int, h: int, w: int, integer: bool) -> dict:
+    """(3, h, w) float32 frames that stress the dense FE's exactness:
+    plateaus and ties, values one ulp about centre +- threshold (20),
+    uint8 0 and 255 edges; on float frames also signed zeros,
+    non-integer values, and large and subnormal magnitudes (a blur sum
+    stays finite)."""
+    rng = np.random.RandomState(seed)
+    shape = (3, h, w)
+    ties = np.round(rng.uniform(0, 255, shape) / 64) * 64
+    ties[:, h // 4:h // 2 + 1, w // 4:w // 2 + 1] = 77.0
+    edges = rng.choice([0.0, 255.0, 1.0, 254.0, 128.0], size=shape)
+    edges[0, :h // 2, :w // 2] = 255.0
+    edges[1, h // 2:, w // 2:] = 0.0
+    ulp = []
+    for v in np.float32([80.3, 100.3, 120.3]):
+        ulp += [v, np.nextafter(v, np.float32(np.inf)),
+                np.nextafter(v, np.float32(-np.inf))]
+    frames = {"plateaus and ties": ties, "0 and 255 edges": edges,
+              "one ulp about centre +- threshold": rng.choice(
+                  np.float32(ulp), size=shape)}
+    if integer:
+        frames = {k: np.round(v) for k, v in frames.items()}
+    else:
+        zeros = rng.choice([0.0, -0.0, 25.0, -25.0], size=shape)
+        zeros[0, :h // 2] = -0.0
+        frames.update({
+            "signed zeros": zeros,
+            "non-integer": rng.uniform(-40.0, 300.0, shape),
+            "large and subnormal magnitudes": rng.choice(
+                np.float32([3e36, -3e36, 1e30, 1.5e-38, 1e-40, 0.0]),
+                size=shape)})
+    return {k: np.ascontiguousarray(v, np.float32) for k, v in frames.items()}
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit-equal: float32 compared as int32, so signed zeros count."""
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("integer", [False, True])
+def test_dense_kernels_on_adversarial_frames(cuda, integer):
+    """K1 over every shape's slab at once, K6 on each shape and K11,
+    on the adversarial frames, both datapaths (uint8 variants on the
+    integer frames), every (nms, quantized) case and thresholds 20 and
+    0: bit-equal to the plain versions, K6 to K1's slab, nms3(K11) to
+    K1's score."""
+    for name in adversarial_frames(0, 7, 7, integer):
+        levels = [torch.from_numpy(adversarial_frames(
+            seed, h, w, integer)[name]).to(cuda)
+            for seed, (h, w) in enumerate(DENSE_SHAPES)]
+        kinds = [levels]
+        if integer:
+            kinds.append([lv.to(torch.uint8) for lv in levels])
+        for lv in kinds:
+            flat, slabs = ops.flat_levels(lv), ops._slabs_of(lv)
+            u8 = flat.dtype == torch.uint8
+            for threshold in (20.0, 0.0):
+                for nms, quantized in ((True, True), (False, True),
+                                       (True, False)):
+                    if u8 and not quantized:
+                        continue
+                    kw = dict(threshold=threshold, nms=nms,
+                              quantized=quantized)
+                    k1 = frontend_fused.frontend_fused_pyramid_cuda(
+                        flat, slabs, **kw)
+                    want = frontend_fused.frontend_fused_pyramid_plain(
+                        flat, slabs, **kw)
+                    for a, b in zip(k1, want):
+                        assert same_bits(a, b), (name, threshold, nms)
+                    for x, (off, h, w) in zip(lv, slabs.slabs[::3]):
+                        k6 = frontend_fused.frontend_fused_cuda(x, **kw)
+                        want = frontend_fused.frontend_fused_plain(x, **kw)
+                        for a, b, c in zip(k6, want, k1):
+                            assert same_bits(a, b), (name, (h, w), nms)
+                            assert same_bits(
+                                a.reshape(-1), c[off:off + 3 * h * w])
+                if not u8:
+                    k1 = frontend_fused.frontend_fused_pyramid_cuda(
+                        flat, slabs, threshold=threshold)[1]
+                    for x, (off, h, w) in zip(lv, slabs.slabs[::3]):
+                        k11 = fast_detect.fast_score_map_cuda(x, threshold)
+                        assert same_bits(k11, frontend_fused.fast_score_plain(
+                            x, threshold)), (name, (h, w))
+                        assert same_bits(nms3(k11).reshape(-1),
+                                         k1[off:off + 3 * h * w])
 
 
 def test_sparse_kernel_equals_plain(cuda):
