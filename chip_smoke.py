@@ -17,10 +17,18 @@ failure (the script then exits non-zero and prints no result):
      integer-valued frames (as a uint8 camera delivers them) and once
      with the float frames as rendered — and time both with CUDA events
      (median of 20 runs after warm-up): the dense FE (K1), the sparse FE
-     (K2) and the fused matcher (K3).  The dense FE family's bounds (K1,
-     K6, K11) count each instruction class at its pipe's rate and the
-     FAST arc extrema only on the pixels that pass the kernels' exact
-     pre-test, whose count is printed;
+     (K2) and the fused matcher (K3).  Every bound counts each
+     instruction class at its pipe's rate (``bound_ms``), the work that
+     depends on the data as this run's data needs it: the dense FE
+     family's (K1, K6, K11) FAST arc extrema only on the pixels that pass
+     the kernels' exact pre-test, whose count is printed, the matchers'
+     search on a row band.  K1, then K2 and K3, float and uint8, also on
+     two textured 720p frames (``textured_frames``); K3 and K3-u8 also on
+     a crowded row band (``crowded_matcher_args``: every right feature
+     inside every left feature's band, equal distances throughout);
+     then the device ms of an empty kernel (``csrc/empty.cu``) at one
+     warp and at K3's and K2's grids, the practical floor under the
+     bounds;
   4. drive ``VisualSystem.process_frame`` on a 4 x 720 x 1280 quad frame
      at the paper's configuration (``PipelineConfig()`` defaults) with
      every launch count set to 0 just before: exactly one launch of each
@@ -133,13 +141,15 @@ failure (the script then exits non-zero and prints no result):
       same exact moments); each variant and its float kernel timed on
       the same inputs (events, ``torch.profiler``, plain version,
       bound: bytes at each tensor's element size, the variants'
-      integer operations at the int32 rate), the uint8 and f32 frames'
-      latency, median of 20 in turns, and each session's device time by
-      kernel over 5 frames (``torch.profiler``);
+      integer instructions at the int32 pipe's rate), the uint8 and f32
+      frames' latency, median of 20 in turns, and each session's device
+      time by kernel over 5 frames (``torch.profiler``);
   12. print the kernels' JSON line (the uint8 variants as rows
       ``<kernel>_u8``, each with its float kernel's ``float_*`` numbers
-      from the same inputs), then ``{"ok": true, "device": ...}`` as the
-      last line.
+      from the same inputs; the sparse FE's and fused matcher's rows with
+      their ``textured`` and ``crowded`` runs; the empty launch under
+      ``empty_launch``), then ``{"ok": true, "device": ...}`` as the last
+      line.
 
 Tolerances: integer and bool outputs, blur and score are bit-equal.
 theta and the moments are equal on integer-valued frames (every sum is
@@ -184,33 +194,34 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM rate and float32
-# rate outside the tensor cores; the kernels' bounds are taken against
-# them, beside the card's power limit.
+# H100 SXM published HBM rate (NVIDIA data sheet); the kernels' bounds
+# are taken against it and the instruction rates below, beside the
+# card's power limit.
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-# The int32 rate the uint8 variants' integer instructions run at: 64
-# results a clock per SM for compute capability 9.0 (CUDA C++ Programming
-# Guide, "Arithmetic Instructions" throughput table: 32-bit integer add,
-# multiply-add, compare, min, max and sum of absolute difference), x 132
-# SMs x 1.98 GHz boost clock (H100 SXM data sheet): 16.7e12 a second.
-# One result is one instruction: an IMAD (a multiply and an add), an
-# IADD3 (two adds) or a SAD term |a - b| + c each counts once, whereas
-# the float32 rate counts an FMA as 2 operations.  NVIDIA publishes no
-# rate for the DPX min/max (sm_90); the counts below take it as this
-# rate, which bounds every kernel that runs DPX no faster than IMNMX.
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
-# The dense FE family (K1, K6, K11) is counted instruction by instruction
-# at its pipe's rate, from the same table for compute capability 9.0, in
-# results a clock per SM x 132 SMs x 1.98 GHz: "32-bit floating-point
-# add, multiply, multiply-add" 128 (FP32_INSTR_PER_S: FADD, FMUL and FFMA
-# one instruction each), "compare, minimum, maximum" 64 (MINMAX_PER_S:
-# FMNMX, FSETP, FSEL, FCHK) and "32-bit floating-point reciprocal" 16
-# (MUFU_PER_S).  The classes' times are summed, as ``bound_ms`` sums the
-# float and integer terms.
+# Every kernel's work is counted instruction by instruction, each at its
+# pipe's rate: results a clock per SM for compute capability 9.0 (CUDA
+# C++ Programming Guide, "Arithmetic Instructions" throughput table) x 132
+# SMs x 1.98 GHz boost clock (H100 SXM data sheet).  Four classes, the
+# ``pipes`` of ``bound_ms``, in this order:
+#   FP32    128: 32-bit floating-point add, multiply, multiply-add (FADD,
+#                FMUL, FFMA: one instruction each);
+#   min/max  64: 32-bit floating-point compare, minimum, maximum (FSETP,
+#                FMNMX, FSEL, FCHK);
+#   MUFU     16: reciprocal and the other special functions, and the
+#                16-a-clock rows: conversions between 32-bit float and
+#                integer types (F2I, I2F) and population count (POPC);
+#   int32    64: 32-bit integer add, multiply-add, compare, min, max,
+#                logical operations, shifts and sum of absolute difference
+#                (IADD3, IMAD, ISETP, IMNMX, LOP3, SHF; a SAD term |a - b|
+#                + c counts once).  NVIDIA publishes no rate for the DPX
+#                min/max (sm_90); the counts take it as this rate, which
+#                bounds every kernel that runs DPX no faster than IMNMX.
+# The classes' times are summed; the pipes overlap, so the strict floor
+# is their maximum.
 FP32_INSTR_PER_S = 128 * 132 * 1.98e9
 MINMAX_PER_S = 64 * 132 * 1.98e9
 MUFU_PER_S = 16 * 132 * 1.98e9
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 REPS = 20
 # gamma_961 = n u / (1 - n u) of a 961-term float32 sum, u = 2**-24.
 GAMMA_961 = 961 * 2.0 ** -24 / (1 - 961 * 2.0 ** -24)
@@ -291,29 +302,48 @@ def time_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, n_ops: float = 0.0, int_ops: float = 0.0, *,
-             pipes: tuple = (0.0, 0.0, 0.0)):
+def bound_ms(n_bytes: float, *, pipes: tuple = (0, 0, 0, 0)):
     """(ms, "bytes" or "operations"): the larger of ``n_bytes`` at the
-    HBM rate and the operations, ``n_ops`` at the float32 rate plus
-    ``int_ops`` at the int32 rate plus ``pipes``, the (FP32, min/max,
-    MUFU) instruction counts at their pipes' rates."""
+    HBM rate and ``pipes``, the (FP32, min/max, MUFU, int32) instruction
+    counts, each at its pipe's rate, summed."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    fp32, minmax, mufu = pipes
-    t_ops = (n_ops / FP32_OPS_PER_S + int_ops / INT32_OPS_PER_S
-             + fp32 / FP32_INSTR_PER_S + minmax / MINMAX_PER_S
-             + mufu / MUFU_PER_S) * 1e3
+    fp32, minmax, mufu, int32 = pipes
+    t_ops = (fp32 / FP32_INSTR_PER_S + minmax / MINMAX_PER_S
+             + mufu / MUFU_PER_S + int32 / INT32_OPS_PER_S) * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
 
 
-def band_search_ops(meta_l: torch.Tensor, meta_r: torch.Tensor, *,
-                    row_band: float, max_disparity: float, **_) -> int:
-    """Operations of the cheapest known masked Hamming argmin on
-    (..., K, 4) x (..., M, 4) meta rows (x, y, level, valid), counted on
-    this run's data: sort each right set by (level, y) once (M log2 M
-    compare-and-moves, 2 each), two binary searches a valid left feature
-    for its row band's ends (2 log2 M), the disparity test of each right
-    feature at its level inside the band (3), and the Hamming distance
-    and running minimum of each pair in the search region (26)."""
+def add_pipes(*counts) -> tuple:
+    """The sum of (FP32, min/max, MUFU, int32) instruction counts."""
+    return tuple(sum(c) for c in zip(*counts))
+
+
+def scale_pipes(n: float, per: tuple) -> tuple:
+    """``n`` times the (FP32, min/max, MUFU, int32) counts ``per``."""
+    return tuple(n * c for c in per)
+
+
+# The masked Hamming argmin, by pipe, on the cheapest schedule known
+# (``band_search_pipes``): the row-band test of a right feature, its
+# disparity difference and two compares (1 FP32, 2 compare); the Hamming
+# distance of a pair in the search region, 8 XOR (LOP3) and 8 POPC, their
+# sum (3 IADD3) and the running minimum and its index (2: int32 13, MUFU
+# class 8).
+BAND_PAIR_PIPES = (1, 2, 0, 0)
+REGION_PAIR_PIPES = (0, 0, 8, 8 + 3 + 2)
+
+
+def band_search_pipes(meta_l: torch.Tensor, meta_r: torch.Tensor, *,
+                      row_band: float, max_disparity: float, **_) -> tuple:
+    """(FP32, min/max, MUFU, int32) instructions of the cheapest known
+    masked Hamming argmin on (..., K, 4) x (..., M, 4) meta rows (x, y,
+    level, valid), counted on this run's data: sort each right set by
+    (level, y) once (M log2 M compare-and-moves, 2 int32 each), two
+    binary searches a valid left feature for its row band's ends (2 log2
+    M int32), the disparity test of each right feature at its level
+    inside the band (BAND_PAIR_PIPES), and the Hamming distance and
+    running minimum of each pair in the search region
+    (REGION_PAIR_PIPES)."""
     log_m = math.ceil(math.log2(max(meta_r.shape[-2], 2)))
     n_right = meta_r[..., 0].numel()
     n_left = int((meta_l[..., 3] > 0.5).sum())
@@ -323,8 +353,18 @@ def band_search_ops(meta_l: torch.Tensor, meta_r: torch.Tensor, *,
                <= row_band))
     dx = meta_l[..., :, None, 0] - meta_r[..., None, :, 0]
     region = band & (dx >= 0.0) & (dx <= max_disparity)
-    return (n_right * log_m * 2 + n_left * log_m * 2 + int(band.sum()) * 3
-            + int(region.sum()) * 26)
+    return add_pipes(
+        (0, 0, 0, n_right * log_m * 2 + n_left * log_m * 2),
+        scale_pipes(int(band.sum()), BAND_PAIR_PIPES),
+        scale_pipes(int(region.sum()), REGION_PAIR_PIPES))
+
+
+def sad_pipes(n_terms: int, n_converted: int, n_argmin: int = 0) -> tuple:
+    """(FP32, min/max, MUFU, int32) instructions of SAD sweeps: one int32
+    instruction a term (|a - b| + c), each of ``n_converted`` float pixels
+    truncated to int32 once (F2I), and 2 int32 a shift for the
+    first-occurrence argmin over ``n_argmin`` shifts."""
+    return (0, 0, n_converted, n_terms + 2 * n_argmin)
 
 
 def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -342,14 +382,23 @@ def near_bin_edge(theta: torch.Tensor, tol: torch.Tensor) -> torch.Tensor:
     return dist <= tol.double()
 
 
-def footprint(shape_hw, xs, ys, kh: int, kw: int, device) -> int:
+def footprint(shape_hw, xs, ys, kh: int, kw: int, device,
+              reach2: int | None = None) -> int:
     """Pixels of an (h, w) image covered by (kh, kw) windows centered at
-    the (already clamped) integer centers — what a kernel must read."""
+    the (already clamped) integer centers — what a kernel must read; with
+    ``reach2``, only each window's disc dx^2 + dy^2 <= reach2."""
     h, w = shape_hw
     m = torch.zeros((1, 1, h, w), device=device)
     m[0, 0, ys.long(), xs.long()] = 1.0
-    cover = F.max_pool2d(m, (kh, kw), stride=1, padding=(kh // 2, kw // 2))
-    return int(cover.sum().item())
+    if reach2 is None:
+        cover = F.max_pool2d(m, (kh, kw), stride=1,
+                             padding=(kh // 2, kw // 2))
+    else:
+        dy = torch.arange(kh, device=device)[:, None] - kh // 2
+        dx = torch.arange(kw, device=device)[None, :] - kw // 2
+        disc = (dx * dx + dy * dy <= reach2).float()[None, None]
+        cover = F.conv2d(m, disc, padding=(kh // 2, kw // 2))
+    return int((cover > 0).sum().item())
 
 
 # FAST-9/16 a pixel, by pipe, on the cheaper of two bit-equal schedules
@@ -364,7 +413,7 @@ def footprint(shape_hw, xs, ys, kh: int, kw: int, device) -> int:
 # max(bright, -dark) (the negation an operand modifier), the threshold
 # compare and select (min/max class: 118 + 3 = 121).
 FAST_EXTREMA_PER_PIXEL = min(112 + 30, 2 * 59)
-FAST_PIPES_PER_PIXEL = (2, FAST_EXTREMA_PER_PIXEL + 1 + 2, 0)
+FAST_PIPES_PER_PIXEL = (2, FAST_EXTREMA_PER_PIXEL + 1 + 2, 0, 0)
 # The exact pre-test a pixel (frontend_common.cuh fast_live): the second
 # largest and second smallest of the 4 compass taps (8 min/max), two
 # subtractions, two compares and their or.  Work that depends on the
@@ -372,14 +421,14 @@ FAST_PIPES_PER_PIXEL = (2, FAST_EXTREMA_PER_PIXEL + 1 + 2, 0)
 # of FAST_PIPES_PER_PIXEL on every pixel and the pre-test on every
 # pixel plus FAST_PIPES_PER_PIXEL on the pixels that pass it
 # (``live_pixels``).
-FAST_PRETEST_PIPES = (2, 8 + 2 + 1, 0)
+FAST_PRETEST_PIPES = (2, 8 + 2 + 1, 0, 0)
 # The rest of the dense FE (K1, K6) a pixel, float: the blur's two passes
 # of 7 multiplies and 6 adds, the norm's add and floor, the IEEE divide
 # as its sm_90 sequence (MUFU.RCP, 5 FFMA, FCHK), and the NMS's multiply
 # by (cs > 0) (FP32: 26 + 2 + 5 + 1 = 34); the separable NMS's 4 maxima,
 # its 2 compares and select, and FCHK (min/max: 8); the reciprocal (MUFU:
 # 1).  FAST comes on top, as above.
-BLUR_NMS_PIPES_PER_PIXEL = (26 + 2 + 5 + 1, 8, 1)
+BLUR_NMS_PIPES_PER_PIXEL = (26 + 2 + 5 + 1, 8, 1, 0)
 # The uint8 variant's, in int32 instructions (one result each at
 # INT32_OPS_PER_S): the blur's horizontal pass, 6 multiply-adds (IMAD or
 # LEA; the first tap is the accumulator) on a 32-bit word that holds two
@@ -396,15 +445,32 @@ BLUR_NMS_PIPES_PER_PIXEL = (26 + 2 + 5 + 1, 8, 1)
 DENSE_INT_OPS_PER_PIXEL = 6 / 2 + 6 + 2 + (4 / 4 + 3)
 FAST_INT_OPS_PER_PIXEL = FAST_EXTREMA_PER_PIXEL / 4 + 4
 FAST_INT_PRETEST_OPS = 8 / 4 + 3
-# Sparse FE a keypoint: 709 masked pixels x (2 mul + 2 add), atan2
-# (~20), bin (4), 256 compares.  On the uint8 variant the moments are
-# 709 x 2 IMAD and the compares 256 int32 instructions
-# (SPARSE_INT_OPS_PER_KP), and atan2 and the bin float
-# (SPARSE_FLOAT_OPS_PER_U8_KP).
-MOMENT_INT_OPS_PER_KP = 709 * 2
-SPARSE_OPS_PER_KP = 709 * 4 + 20 + 4 + 256
-SPARSE_INT_OPS_PER_KP = MOMENT_INT_OPS_PER_KP + 256
-SPARSE_FLOAT_OPS_PER_U8_KP = 20 + 4
+# The sparse FE a keypoint, by pipe (FP32, min/max, MUFU, int32), on the
+# cheapest schedule known for each part.  The moments as masked column
+# sums (describe_common.cuh): each of the 709 pixels in the mask added
+# into sum p and multiply-added into sum dy * p, then each of the 31
+# columns' dx * sum p and the sums across the columns (2 x 31): 1,480
+# instructions, FP32 on float pixels, int32 on uint8 ones.  atan2f: about
+# 20 FP32, 4 compares and selects and a reciprocal (MUFU).  The steering
+# bin: a multiply, the conversion to int (MUFU class) and the mod 12 (4
+# int32); on uint8 the two moments' conversions to float (MUFU class)
+# too.  The descriptor: 256 compares (min/max class in float, int32 on
+# uint8) and 8 ballots (int32); the taps' indices are ROM constants.
+MOMENT_INSTR_PER_KP = 709 * 2 + 2 * 31
+# The pixels the sparse FE reads about a keypoint: the raw image inside
+# the moments' circular mask (dx^2 + dy^2 <= 15^2) and the smoothed one
+# inside the disc that the steering taps reach (describe_common.cuh
+# TAP_REACH2; the largest dx^2 + dy^2 of a STEER_LUT tap).
+MOMENT_REACH2 = 15 * 15
+TAP_REACH2 = 173
+ATAN2_BIN_PIPES = (20 + 1, 4, 1 + 1, 4)
+ORIENT_PIPES_PER_KP = {
+    "f32": add_pipes((MOMENT_INSTR_PER_KP, 0, 0, 0), (20, 4, 1, 0)),
+    "u8": add_pipes((0, 0, 0, MOMENT_INSTR_PER_KP), (20, 4, 1 + 2, 0))}
+SPARSE_PIPES_PER_KP = {
+    "f32": add_pipes((MOMENT_INSTR_PER_KP, 256, 0, 8), ATAN2_BIN_PIPES),
+    "u8": add_pipes((0, 0, 2, MOMENT_INSTR_PER_KP + 256 + 8),
+                    ATAN2_BIN_PIPES)}
 
 
 def abs_moment_sums(patches: torch.Tensor) -> torch.Tensor:
@@ -502,12 +568,11 @@ def hold_bins(th_k, desc_k, th_p, desc_p, tol, what: str):
 
 def sparse_bound(pairs):
     """(bound ms, by) of the sparse FE on [(level (B, h, w), keypoints
-    (B, K, 2))]: each covered level pixel of the raw and the smoothed
-    image read once (at the level's element size), the keypoints read
+    (B, K, 2))]: each level pixel that the function reads read once (at
+    the level's element size): the raw image inside the moments' disc,
+    the smoothed one inside the steering taps' disc; the keypoints read
     and theta, moments and descriptor written, the steering LUT read;
-    SPARSE_OPS_PER_KP a keypoint at the float32 rate, or on uint8
-    levels SPARSE_INT_OPS_PER_KP at the int32 rate and
-    SPARSE_FLOAT_OPS_PER_U8_KP at the float32 rate."""
+    SPARSE_PIPES_PER_KP a keypoint (the float or the uint8 counts)."""
     px = n_kp = 0
     size = 4
     for lv, xy in pairs:
@@ -515,13 +580,13 @@ def sparse_bound(pairs):
         h, w = lv.shape[1:]
         n_kp += xy.shape[0] * xy.shape[1]
         for cam in range(lv.shape[0]):
-            px += footprint((h, w), xy[cam, :, 0].clamp(0, w - 1),
-                            xy[cam, :, 1].clamp(0, h - 1), 31, 31, lv.device)
-    n_bytes = 2 * px * size + n_kp * (8 + 4 + 44) + 12 * 256 * 2 * 4
-    if size == 1:
-        return bound_ms(n_bytes, n_kp * SPARSE_FLOAT_OPS_PER_U8_KP,
-                        n_kp * SPARSE_INT_OPS_PER_KP)
-    return bound_ms(n_bytes, n_kp * SPARSE_OPS_PER_KP)
+            xs = xy[cam, :, 0].clamp(0, w - 1)
+            ys = xy[cam, :, 1].clamp(0, h - 1)
+            px += sum(footprint((h, w), xs, ys, 31, 31, lv.device, reach2)
+                      for reach2 in (MOMENT_REACH2, TAP_REACH2))
+    n_bytes = px * size + n_kp * (8 + 4 + 44) + 12 * 256 * 4
+    per = SPARSE_PIPES_PER_KP["u8" if size == 1 else "f32"]
+    return bound_ms(n_bytes, pipes=scale_pipes(n_kp, per))
 
 
 def live_pixels(x: torch.Tensor, threshold: float, slabs=None) -> int:
@@ -546,9 +611,10 @@ def live_pixels(x: torch.Tensor, threshold: float, slabs=None) -> int:
     return int(live.sum())
 
 
-def fast_bound(n_bytes: int, n: int, n_live: int, base=(0, 0, 0)):
+def fast_bound(n_bytes: int, n: int, n_live: int, base=(0, 0, 0, 0)):
     """(bound ms, by) of FAST on ``n`` pixels, ``n_live`` of them passing
-    the pre-test, on top of ``base`` (FP32, min/max, MUFU) instructions:
+    the pre-test, on top of ``base`` (FP32, min/max, MUFU, int32)
+    instructions:
     the smaller of the reference's schedule on every pixel and the
     pre-test on every pixel with the schedule on the live ones."""
     full = [b + n * f for b, f in zip(base, FAST_PIPES_PER_PIXEL)]
@@ -572,9 +638,10 @@ def dense_bound(x, blur, score, n_live: int):
     if x.dtype == torch.uint8:
         fast = min(n * FAST_INT_OPS_PER_PIXEL,
                    n * FAST_INT_PRETEST_OPS + n_live * FAST_INT_OPS_PER_PIXEL)
-        return bound_ms(n_bytes, 0, n * DENSE_INT_OPS_PER_PIXEL + fast)
+        return bound_ms(n_bytes,
+                        pipes=(0, 0, 0, n * DENSE_INT_OPS_PER_PIXEL + fast))
     return fast_bound(n_bytes, n, n_live,
-                      tuple(n * c for c in BLUR_NMS_PIPES_PER_PIXEL))
+                      scale_pipes(n, BLUR_NMS_PIPES_PER_PIXEL))
 
 
 def pyramid_pairs(raw, slabs, xy, col):
@@ -592,20 +659,18 @@ def pyramid_pairs(raw, slabs, xy, col):
 
 def orient_bound(raw, xy):
     """(bound ms, by) of orientation only on (B, H, W) images and (B, K,
-    2) keypoints: each covered pixel read once at the images' element
+    2) keypoints: each pixel inside a keypoint's moment disc read once
+    at the images' element
     size, the keypoints read and theta and moments written;
-    ORIENT_OPS_PER_KP a keypoint at the float32 rate, or on uint8 images
-    MOMENT_INT_OPS_PER_KP at the int32 rate and atan2 at the float32
-    rate."""
+    ORIENT_PIPES_PER_KP a keypoint (the float or the uint8 counts)."""
     b, h, w = raw.shape
     px = sum(footprint((h, w), xy[c, :, 0].clamp(0, w - 1),
-                       xy[c, :, 1].clamp(0, h - 1), 31, 31, raw.device)
-             for c in range(b))
+                       xy[c, :, 1].clamp(0, h - 1), 31, 31, raw.device,
+                       MOMENT_REACH2) for c in range(b))
     n_kp = xy.shape[0] * xy.shape[1]
     n_bytes = px * raw.element_size() + n_kp * (8 + 4 + 8)
-    if raw.dtype == torch.uint8:
-        return bound_ms(n_bytes, n_kp * 20, n_kp * MOMENT_INT_OPS_PER_KP)
-    return bound_ms(n_bytes, n_kp * ORIENT_OPS_PER_KP)
+    per = ORIENT_PIPES_PER_KP["u8" if raw.dtype == torch.uint8 else "f32"]
+    return bound_ms(n_bytes, pipes=scale_pipes(n_kp, per))
 
 
 def check_dense(levels, cfg, kind: str):
@@ -713,23 +778,35 @@ def check_sparse(levels, dense, cfg, kind: str, integer: bool):
                                                           col)),
         plain_ms=time_ms(lambda: de.describe_fused_pyramid_plain(
             raw, sm, slabs, xy, col)),
+        device_ms=device_ms(lambda: de.describe_fused_pyramid_cuda(
+            raw, sm, slabs, xy, col), "describe_kernel"),
         max_abs_err=err)
     stats["bound_ms"], stats["bound_by"] = sparse_bound(zip(levels, xys))
     return stats, xys
 
 
-def check_matcher(images, cfg, intr, kind: str):
+def check_matcher(images, cfg, intr, kind: str, pixels=None):
+    """K3 on the stereo pairs of ``images``' own features, on ``pixels``
+    (by default ``images``; the uint8 copy for the uint8 variant)
+    (``check_matcher_args``)."""
     from repro_torch.core import matching, orb
     from repro_torch.core.types import map_fields
-    from repro_torch.kernels import matcher_fused as mf
     feats = orb.extract_features_batched(images, cfg)
+    pixels = images if pixels is None else pixels
     li = torch.tensor([0, 2], device=images.device)
     ri = torch.tensor([1, 3], device=images.device)
     fl = map_fields(lambda x: x[li], feats)
     fr = map_fields(lambda x: x[ri], feats)
     args = (fl.desc.contiguous(), matching._meta(fl).contiguous(),
             fr.desc.contiguous(), matching._meta(fr).contiguous(),
-            images[li].contiguous(), images[ri].contiguous())
+            pixels[li].contiguous(), pixels[ri].contiguous())
+    return check_matcher_args(args, cfg, kind)
+
+
+def check_matcher_args(args, cfg, kind: str):
+    """K3 against its plain version on (desc_l, meta_l, desc_r, meta_r,
+    img_l, img_r) at ``cfg``'s gates (every output bit-equal), timed."""
+    from repro_torch.kernels import matcher_fused as mf
     kw = dict(row_band=float(cfg.row_band),
               max_disparity=float(cfg.max_disparity),
               max_hamming=int(cfg.max_hamming), sad_window=cfg.sad_window,
@@ -748,9 +825,90 @@ def check_matcher(images, cfg, intr, kind: str):
     stats = dict(ms=time_ms(lambda: mf.match_rectify_fused_cuda(*args, **kw)),
                  plain_ms=time_ms(lambda: mf.match_rectify_fused_plain(
                      *args, **kw)),
+                 device_ms=device_ms(lambda: mf.match_rectify_fused_cuda(
+                     *args, **kw), "match_kernel"),
                  max_abs_err=err)
     stats["bound_ms"], stats["bound_by"] = matcher_bound(args, out_k[2], kw)
     return stats
+
+
+def check_sparse_matcher_textured(frame: np.ndarray, cfg, intr, dev) -> dict:
+    """K2 and K3, float and uint8, held to their plain versions and timed
+    (``check_sparse``, ``check_matcher``) on each of
+    ``textured_frames(frame)``, where every camera's top-K fills with
+    corners: {"<frame>_<f32|u8>": {"sparse": stats, "matcher": stats}}."""
+    from repro_torch.core import pyramid
+    from repro_torch.kernels import ops
+    out = {}
+    for name, img in textured_frames(frame).items():
+        images = torch.from_numpy(img).to(dev)
+        for variant, prec, x in (("f32", "f32", images),
+                                 ("u8", "uint8", images.to(torch.uint8))):
+            what = f"{name} {variant}"
+            levels = pyramid.build_pyramid_batched(x, cfg, precision=prec)
+            dense = ops.fast_blur_nms_pyramid(
+                levels, float(cfg.fast_threshold), nms=cfg.nms,
+                quantized=cfg.quantized)
+            sp, _ = check_sparse(levels, dense, cfg, what, True)
+            mt = check_matcher(images, cfg, intr, what, pixels=x)
+            log(f"[textured/{what}] sparse FE {sp['ms']:.4f} ms event, device "
+                f"{sp['device_ms']}, bound {sp['bound_ms']:.6f} "
+                f"({sp['bound_by']}); matcher {mt['ms']:.4f} ms event, "
+                f"device {mt['device_ms']}, bound {mt['bound_ms']:.6f} "
+                f"({mt['bound_by']})")
+            out[f"{name}_{variant}"] = {"sparse": sp, "matcher": mt}
+    return out
+
+
+def crowded_matcher_args(images: torch.Tensor, cfg, seed: int = 0):
+    """Fused-matcher inputs at full width on ``images``' stereo pairs
+    with every feature on one row band: 2 pairs x max_features left and
+    right features at y = 360 (the right ones within +-1 px), x spread so
+    that about a tenth of the pairs lie in the disparity range, valid, on
+    level 0; descriptors 0-3 bits from their pair's base descriptor, so
+    that equal distances abound.  The search's worst case: every right
+    feature passes the row band for every left feature."""
+    rng = np.random.RandomState(seed)
+    p, n = 2, cfg.max_features
+    base = rng.randint(0, 2**32, (p, 8), dtype=np.uint64).astype(np.uint32)
+
+    def near(b):
+        out = b.copy()
+        for bit in rng.choice(256, rng.randint(0, 4), replace=False):
+            out[bit // 32] ^= np.uint32(1) << np.uint32(bit % 32)
+        return out
+
+    dl, dr = (np.stack([np.stack([near(base[q]) for _ in range(n)])
+                        for q in range(p)]) for _ in range(2))
+    ones, zeros = np.ones((p, n)), np.zeros((p, n))
+    mr = np.stack([rng.uniform(200.0, 1000.0, (p, n)),
+                   360.0 + rng.uniform(-1.0, 1.0, (p, n)), zeros, ones], -1)
+    ml = np.stack([rng.uniform(300.0, 1100.0, (p, n)), 360.0 * ones, zeros,
+                   ones], -1)
+    dev = images.device
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        dl.view(np.int32), ml.astype(np.float32), dr.view(np.int32),
+        mr.astype(np.float32))) + (images[[0, 2]].contiguous(),
+                                   images[[1, 3]].contiguous())
+
+
+def empty_launch_floor() -> dict:
+    """Event and device ms of an empty kernel (``csrc/empty.cu``) at one
+    warp, at K3's grid (126 blocks of 512 threads) and at K2's (500 of
+    256): the practical floor under every kernel's bound."""
+    from repro_torch.kernels import _build
+    kern = _build.CudaKernel("empty", "empty_launch", "ii")
+    dev = torch.device("cuda")
+    out = {}
+    for name, blocks, threads in (("1x32", 1, 32), ("126x512", 126, 512),
+                                  ("500x256", 500, 256)):
+        def fn():
+            kern(dev, blocks, threads)
+        out[name] = dict(ms=time_ms(fn), device_ms=device_ms(fn,
+                                                             "empty_kernel"))
+        log(f"[empty launch {name}] {out[name]['ms']:.4f} ms event, device "
+            f"{out[name]['device_ms']} ms")
+    return out
 
 
 def matcher_bound(args, rxy, kw):
@@ -758,9 +916,9 @@ def matcher_bound(args, rxy, kw):
     meta_r, img_l, img_r) with effective right centers ``rxy``: the
     descriptors and meta rows read, the pixels the windows and strips
     cover read once at the images' element size, the outputs written;
-    a banded search (``band_search_ops``) and every SAD term at the
-    float32 rate (3 operations a term), or on uint8 images at the int32
-    rate (one SAD instruction a term)."""
+    a banded search (``band_search_pipes``) and the SAD sweeps
+    (``sad_pipes``: every term, the covered float pixels' truncation,
+    the argmin over the shifts)."""
     images = args[4]
     p, k = args[1].shape[0], args[1].shape[1]
     m = args[3].shape[1]
@@ -777,11 +935,10 @@ def matcher_bound(args, rxy, kw):
     sweep = 2 * rng + 1
     n_bytes = (p * (k + m) * (32 + 16) + px * images.element_size()
                + p * k * 20)
-    search = band_search_ops(args[1], args[3], **kw)
-    terms = p * k * sweep * win ** 2
-    if images.dtype == torch.uint8:
-        return bound_ms(n_bytes, 0, search + terms)
-    return bound_ms(n_bytes, search + terms * 3)
+    converted = 0 if images.dtype == torch.uint8 else px
+    return bound_ms(n_bytes, pipes=add_pipes(
+        band_search_pipes(args[1], args[3], **kw),
+        sad_pipes(p * k * sweep * win ** 2, converted, p * k * sweep)))
 
 
 def profiled_ms(fn, symbols, reps: int = REPS) -> list:
@@ -811,7 +968,7 @@ def device_ms(fn, symbol: str, reps: int = REPS):
 def check_match_only(args, kw, kind: str):
     """K4 against its plain version on (desc_l, meta_l, desc_r, meta_r)
     (bit-equal dist and idx), timed; the bound counts a banded search
-    (``band_search_ops``) on these inputs."""
+    (``band_search_pipes``) on these inputs."""
     from repro_torch.kernels import match_fused as mo
     out_k = mo.match_fused_cuda(*args, **kw)
     out_p = mo.match_fused_plain(*args, **kw)
@@ -834,7 +991,7 @@ def check_match_only(args, kw, kind: str):
                  max_abs_err=err)
     stats["bound_ms"], stats["bound_by"] = bound_ms(
         b * (k + m) * (32 + 16) + b * k * 8,
-        band_search_ops(args[1], args[3], **kw))
+        pipes=band_search_pipes(args[1], args[3], **kw))
     log(f"[match-only/{kind}] {stats['ms']:.4f} ms event, device "
         f"{stats['device_ms']} ms, bound {stats['bound_ms']:.6f} ms "
         f"({stats['bound_by']}), plain {stats['plain_ms']:.4f} ms, library "
@@ -876,8 +1033,7 @@ def sad_bound(args, kw):
     """(bound ms, by) of the SAD-only matcher on (img_l, img_r, xy_l,
     xy_r): the pixels the windows and strips cover read once at the
     images' element size, the centers read and the table written; every
-    SAD term at the float32 rate (3 operations), or on uint8 images at
-    the int32 rate (one SAD instruction)."""
+    SAD term and the covered float pixels' truncation (``sad_pipes``)."""
     img_l, _, xy_l, xy_r = args
     win, rng = kw["sad_window"], kw["sad_range"]
     p, k = xy_l.shape[0], xy_l.shape[1]
@@ -890,10 +1046,9 @@ def sad_bound(args, kw):
             ys = torch.round(xy[:, 1]).clamp(0, h - 1)
             px += footprint((h, w), xs, ys, win, width, img_l.device)
     n_bytes = px * img_l.element_size() + p * k * 16 + p * k * sweep * 4
-    terms = p * k * sweep * win ** 2
-    if img_l.dtype == torch.uint8:
-        return bound_ms(n_bytes, 0, terms)
-    return bound_ms(n_bytes, terms * 3)
+    converted = 0 if img_l.dtype == torch.uint8 else px
+    return bound_ms(n_bytes, pipes=sad_pipes(p * k * sweep * win ** 2,
+                                             converted))
 
 
 def stage_times(vs, images, reps: int = REPS):
@@ -1054,13 +1209,10 @@ def close_poses(a, b, atol: float, what: str) -> float:
     return err
 
 
-# Float operations a pixel of the standalone FAST score map, counted on
-# the cheapest algorithm known for it (not on K11's brute force, 306):
-# The 7x7 blur a pixel: two passes of 7 multiplies and 6 adds, then the
-# norm's add, divide and floor.
-BLUR_OPS_PER_PIXEL = 2 * 13 + 3
-# Orientation a keypoint: 709 masked pixels x (2 mul + 2 add), atan2.
-ORIENT_OPS_PER_KP = 709 * 4 + 20
+# The 7x7 blur a pixel (K12, quantized): two passes of 7 multiplies and 6
+# adds, the norm's add and floor, the IEEE divide as its sm_90 sequence
+# (5 FFMA, FCHK, MUFU.RCP): (26 + 2 + 5 FP32, 1 min/max, 1 MUFU).
+BLUR_PIPES_PER_PIXEL = (26 + 2 + 5, 1, 1, 0)
 SINGLE_KERNELS = ("fast_score_map", "gaussian_blur7", "orient_fused")
 
 
@@ -1269,7 +1421,8 @@ def single_image_phase(frame, cfg, dev):
              None),
             ("gaussian_blur7", lambda: gb.gaussian_blur7_cuda(x, True),
              lambda: blur_plain(x, True), "blur_kernel",
-             bound_ms(n * 2 * x.element_size(), n * BLUR_OPS_PER_PIXEL),
+             bound_ms(n * 2 * x.element_size(),
+                      pipes=scale_pipes(n, BLUR_PIPES_PER_PIXEL)),
              lib_ms),
             ("orient_fused", lambda: de.orient_fused_cuda(raw, xy),
              lambda: de.orient_fused_plain(raw, xy), "orient_kernel",
@@ -1602,19 +1755,19 @@ def unfused_phase(card, frame0, images, intr, out4):
     kp, p = args10[0].shape[0], args10[0].shape[1]
     sweep = args10[1].shape[-1] - p + 1
     stats = {}
-    for name, fn, plain, symbol, nbytes, nops, err in (
+    n_window = args10[0].numel() + args10[1].numel()
+    for name, fn, plain, symbol, nbytes, pipes, err in (
             ("hamming_match", lambda: hm.hamming_match_cuda(*args9, **kw9),
              lambda: hm.hamming_match_plain(*args9, **kw9),
              "hamming_argmin_kernel", (k + m) * (32 + 16) + k * 8,
-             band_search_ops(args9[1], args9[3], **kw9), err9),
+             band_search_pipes(args9[1], args9[3], **kw9), err9),
             ("sad_search", lambda: sr.sad_search_cuda(*args10),
              lambda: sr.sad_search_plain(*args10), "sad_search_kernel",
-             (args10[0].numel() + args10[1].numel())
-             * args10[0].element_size() + kp * sweep * 4,
-             kp * sweep * p * p * 3, err10)):
+             n_window * args10[0].element_size() + kp * sweep * 4,
+             sad_pipes(kp * sweep * p * p, n_window), err10)):
         st = dict(ms=time_ms(fn), device_ms=device_ms(fn, symbol),
                   plain_ms=time_ms(plain), max_abs_err=err)
-        st["bound_ms"], st["bound_by"] = bound_ms(nbytes, nops)
+        st["bound_ms"], st["bound_by"] = bound_ms(nbytes, pipes=pipes)
         stats[name] = st
         log(f"[{name} 720p pair] {st['ms']:.4f} ms event, device "
             f"{st['device_ms']} ms, bound {st['bound_ms']:.6f} ms "
@@ -2174,6 +2327,20 @@ def main() -> int:
             f"{match_stats['ms']:.4f} ms (plain {match_stats['plain_ms']:.4f})")
 
     textured = check_dense_textured(frame, cfg, dev)
+    textured_fm = check_sparse_matcher_textured(frame, cfg, intr, dev)
+    crowded = {}
+    for variant, imgs in (("f32", torch.from_numpy(np.round(frame))),
+                          ("u8", torch.from_numpy(np.round(frame)).to(
+                              torch.uint8))):
+        crowded[variant] = check_matcher_args(
+            crowded_matcher_args(imgs.to(dev), cfg), cfg,
+            f"crowded row band {variant}")
+        log(f"[matcher/crowded row band {variant}] "
+            f"{crowded[variant]['ms']:.4f} ms event, device "
+            f"{crowded[variant]['device_ms']}, bound "
+            f"{crowded[variant]['bound_ms']:.6f} "
+            f"({crowded[variant]['bound_by']})")
+    floor = empty_launch_floor()
 
     # 4. the main path through the session entry point
     vs = VisualSystem(RigConfig.quad(intr), PipelineConfig(), device="cuda")
@@ -2321,10 +2488,16 @@ def main() -> int:
             "ms_integer_frames": results["integer"][i]["ms"],
             "profiled_device_ms": prof[0] if prof else None,
         })
+    keys = ("ms", "device_ms", "bound_ms", "bound_by")
     kernels[0]["textured"] = {
-        name: {k: st[k] for k in ("ms", "device_ms", "bound_ms", "bound_by",
-                                  "fast_live_share")}
+        name: {k: st[k] for k in keys + ("fast_live_share",)}
         for name, st in textured.items()}
+    for i, part in ((1, "sparse"), (2, "matcher")):
+        kernels[i]["device_ms"] = results["float"][i]["device_ms"]
+        kernels[i]["textured"] = {name: {k: st[part][k] for k in keys}
+                                  for name, st in textured_fm.items()}
+    kernels[2]["crowded"] = {v: {k: st[k] for k in keys}
+                             for v, st in crowded.items()}
     for name, source, replaces, st, n, extra in (
             ("match_fused", "src/repro_torch/kernels/csrc/match_fused.cu",
              "src/repro/kernels/matcher_fused.py:239", mo_frame,
@@ -2406,7 +2579,8 @@ def main() -> int:
                       "localized_metrics": loc["metrics"],
                       "localized_host_syncs": loc["host_syncs"],
                       "per_level_vs_whole_frame": schedules,
-                      "uint8_vs_f32_frame": u8_latency}))
+                      "uint8_vs_f32_frame": u8_latency,
+                      "empty_launch": floor}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind_name,
         "count": torch.cuda.device_count()}}), flush=True)

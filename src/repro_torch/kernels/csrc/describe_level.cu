@@ -16,17 +16,19 @@
 // and a 31x31 smoothed patch; counting each covered level pixel once
 // (patches overlap) that is at most 18 MB on level 0 (2,364 keypoints)
 // and 12 MB on level 1 (1,636), 5 us and 4 us at 3.35 TB/s.  About
-// 3,100 float operations a keypoint are under 0.1 us at 67 TFLOP/s, so
-// the kernel is bound by bytes.
+// 1,500 instructions a keypoint at their pipes' rates (chip_smoke.py
+// sparse_bound) are under 0.1 us, so the kernel is bound by bytes.
 //
 // Design: K2's (describe_fused.cu) on one level: one warp per keypoint,
-// four keypoints per 128-thread block, any K (no KP_BLOCK padding; the
-// last block's spare warps leave at once).  The keypoint body is
-// describe_common.cuh's describe_keypoint, the same device code K2 runs:
-// clamped patch reads into shared memory (the reference's edge pad, so
-// no padded slab), shuffle-reduced moments, exact shared-memory tau
-// compares packed by __ballot_sync.  The TPU's +-1 selection matmul and
-// its whole-level VMEM residency are gone.
+// eight keypoints per 256-thread block, four blocks an SM, any K (no
+// KP_BLOCK padding; the last block's spare warps leave at once).  The
+// keypoint body is describe_common.cuh's describe_keypoint, the same
+// device code K2 runs: row-by-row clamped window reads (the reference's
+// edge pad, so no padded slab), the raw pixels summed in registers as
+// masked column sums, only the smoothed window in dynamic shared memory,
+// exact tau compares through the packed LUT row, packed by
+// __ballot_sync.  The TPU's +-1 selection matmul and its whole-level VMEM
+// residency are gone.
 //
 // Pixel types: one template, launched as describe_level_kernel<float>
 // (describe_fused) and describe_level_kernel<unsigned char>
@@ -36,17 +38,17 @@
 namespace {
 
 using describe::NPIX;
-constexpr int WARPS = 4;
+constexpr int WARPS = 8;
+constexpr int NT = WARPS * 32;
 
 template <typename P>
-__global__ void __launch_bounds__(WARPS * 32)
-describe_level_kernel(const int* __restrict__ lut, const P* __restrict__ raw,
-                      const P* __restrict__ sm, const int* __restrict__ xy,
-                      float* __restrict__ theta, float* __restrict__ mom,
-                      int* __restrict__ desc, int B, int K, int h, int w,
-                      float inv_step) {
-  __shared__ P s_raw[WARPS][NPIX];
-  __shared__ P s_sm[WARPS][NPIX];
+__global__ void __launch_bounds__(NT, 4)
+describe_level_kernel(const unsigned* __restrict__ lut,
+                      const P* __restrict__ raw, const P* __restrict__ sm,
+                      const int* __restrict__ xy, float* __restrict__ theta,
+                      float* __restrict__ mom, int* __restrict__ desc, int B,
+                      int K, int h, int w, float inv_step) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const long long kp = static_cast<long long>(blockIdx.x) * WARPS + warp;
@@ -54,8 +56,9 @@ describe_level_kernel(const int* __restrict__ lut, const P* __restrict__ raw,
 
   const long long img = (kp / K) * h * w;
   describe::describe_keypoint(lut, raw + img, sm + img, h, w, xy[2 * kp],
-                              xy[2 * kp + 1], inv_step, lane, s_raw[warp],
-                              s_sm[warp], kp, theta, mom, desc);
+                              xy[2 * kp + 1], inv_step, lane,
+                              reinterpret_cast<P*>(smem) + warp * NPIX, kp,
+                              theta, mom, desc);
 }
 
 template <typename P>
@@ -64,8 +67,9 @@ int launch(const int* lut, const P* raw, const P* sm, const int* xy,
            float inv_step, cudaStream_t stream) {
   const long long n = static_cast<long long>(B) * K;
   const dim3 grid(static_cast<unsigned>((n + WARPS - 1) / WARPS));
-  describe_level_kernel<P><<<grid, WARPS * 32, 0, stream>>>(
-      lut, raw, sm, xy, theta, mom, desc, B, K, h, w, inv_step);
+  describe_level_kernel<P><<<grid, NT, WARPS * NPIX * sizeof(P), stream>>>(
+      reinterpret_cast<const unsigned*>(lut), raw, sm, xy, theta, mom, desc,
+      B, K, h, w, inv_step);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,10 +8,11 @@
 // the edge pixel.
 //
 // Bound on an H100 SXM for one 720 x 1280 level: 0.92 M pixels read
-// once and written once (7.4 MB, 2.2 us at 3.35 TB/s) against 29 float
-// operations a pixel (two passes of 7 multiplies and 6 adds, the add,
-// divide and floor of the norm: 27 M, 0.4 us at 67 TFLOP/s), so the
-// kernel is bound by bytes.
+// once and written once (7.4 MB, 2.2 us at 3.35 TB/s) against 33 FP32
+// instructions a pixel (two passes of 7 multiplies and 6 adds, the norm's
+// add and floor, the IEEE divide's 5 FFMA), its FCHK and its reciprocal
+// at their pipes' rates (chip_smoke.py BLUR_PIPES_PER_PIXEL: about
+// 1.2 us), so the kernel is bound by bytes.
 //
 // Design: one 256-thread block per (image, 32x32 output tile), as K1
 // tiles; the tile plus a halo of 3 is loaded into shared memory with

@@ -12,46 +12,53 @@
 // rows and maps BIG to -1; here no row is padded).
 //
 // Bound on an H100 SXM at one 720p pair (1000 x 1000 features): about
-// 0.05 MB of descriptors and meta rows, well under 0.1 us at 3.35 TB/s;
-// 1 M candidate pairs at ~10 operations for the search-region test
-// (plus 26 for the few inside it), about 0.15 us at 67 TFLOP/s.  Both
-// are far below a launch's latency: the kernel is bound by launch
-// latency and by each warp's serial walk over the right features.
+// 0.05 MB of descriptors and meta rows, well under 0.1 us at 3.35 TB/s; a
+// banded search's instructions at their pipes' rates (chip_smoke.py
+// band_search_pipes) well under 0.1 us.  Both are far below a launch's
+// latency.
 //
-// Design: the match-only kernel's search (matcher_common.cuh) on one
-// pair: one warp per left feature, eight per block.  The TPU's 128 x
-// 128 tiles, its sequential M grid axis carrying the running argmin
-// and its padding of K and M to tile multiples are not needed: a warp
-// walks its own right features to M and the shuffle reduction keeps
-// the lowest index among equal distances.
+// Design: the fused matcher's search (matcher_common.cuh block_argmin) on one
+// pair: a block owns a tile of 16 left features, one warp each, and stages
+// the pair's meta rows in shared memory once; the few candidates in the
+// stereo search region read their descriptors from L2.  The TPU's 128 x 128
+// tiles, its sequential M grid axis carrying the running argmin and its
+// padding of K and M to tile multiples are not needed: lanes walk the staged
+// right features in index order and the shuffle reduction keeps the lowest
+// index among equal distances.
 #include "matcher_common.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;
+constexpr int WARPS = 16;
+constexpr int NT = WARPS * 32;
 
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(NT)
 hamming_argmin_kernel(const int* __restrict__ dl,
                       const float* __restrict__ ml,
                       const int* __restrict__ dr,
                       const float* __restrict__ mr, int* __restrict__ dist,
                       int* __restrict__ idx, int K, int M, float row_band,
-                      float max_disp) {
+                      float max_disp, int vec) {
+  extern __shared__ uint4 smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int q = blockIdx.x * WARPS + warp;
-  if (q >= K) return;                     // whole warp leaves
+  const bool has = q < K;                 // uniform over the warp
 
-  int best = matcher::BIG, bidx = -1;
-  if (ml[4 * q + 3] > 0.5f) {             // uniform over the warp
-    unsigned d[8];
+  const bool search = has && ml[4 * q + 3] > 0.5f;
+  unsigned d[8] = {};
+  float lx = 0.f, ly = 0.f, llv = 0.f;
+  if (search) {
+    lx = ml[4 * q];
+    ly = ml[4 * q + 1];
+    llv = ml[4 * q + 2];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) d[k] = static_cast<unsigned>(dl[8 * q + k]);
-    matcher::warp_hamming_argmin(d, ml[4 * q], ml[4 * q + 1], ml[4 * q + 2],
-                                 dr, mr, M, row_band, max_disp, lane, best,
-                                 bidx);
+    for (int w = 0; w < 8; ++w) d[w] = static_cast<unsigned>(dl[8 * q + w]);
   }
-  if (lane == 0) {
+  int best, bidx;
+  matcher::block_argmin<NT, false>(search, d, lx, ly, llv, mr, dr, M, vec != 0,
+                            row_band, max_disp, smem, lane, best, bidx);
+  if (has && lane == 0) {
     dist[q] = best;
     idx[q] = bidx;
   }
@@ -64,7 +71,8 @@ extern "C" int hamming_match(const int* dl, const float* ml, const int* dr,
                              int M, float row_band, float max_disp,
                              cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>((K + WARPS - 1) / WARPS));
-  hamming_argmin_kernel<<<grid, WARPS * 32, 0, stream>>>(
-      dl, ml, dr, mr, dist, idx, K, M, row_band, max_disp);
+  hamming_argmin_kernel<<<grid, NT, matcher::search_smem_bytes<false>(M),
+                          stream>>>(dl, ml, dr, mr, dist, idx, K, M, row_band,
+                                    max_disp, matcher::rows_aligned(mr, dr));
   return static_cast<int>(cudaGetLastError());
 }

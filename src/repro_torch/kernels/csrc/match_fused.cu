@@ -12,47 +12,56 @@
 // survives.  The temporal window [-r, r] arrives as the caller's shift
 // of the left x by +r with max_disp = 2r.
 //
-// Bound on an H100 SXM at a localized 720p frame's shapes (2 pairs x
-// 1000 x 1000 features): about 0.2 MB of descriptors and meta rows, well
-// under 0.1 us at 3.35 TB/s; 2 M candidate pairs at ~10 operations for
-// the search-region test (plus 26 for the few inside it), about 0.3 us
-// at 67 TFLOP/s.  Both are far below a launch's latency: the kernel is
-// bound by launch latency and by each warp's serial walk over the right
-// features.
+// Bound on an H100 SXM at a localized 720p frame's shapes (2 pairs x 1000 x
+// 1000 features): about 0.2 MB of descriptors and meta rows, well under
+// 0.1 us at 3.35 TB/s; a banded search's instructions at their pipes'
+// rates (chip_smoke.py band_search_pipes) well under 0.1 us.  Both are
+// far below a launch's latency.
 //
-// Design: K3's search without its SAD half (matcher_common.cuh): one
-// warp per left feature, eight per block, one launch over every batch
-// row.  The TPU's 128-row K tiles and its padding of K and M to tile
-// multiples are not needed: a warp reads its own rows and stops at M.
+// Design: K3's search without its SAD half (matcher_common.cuh
+// block_argmin): a block owns one batch row and a tile of 16 left
+// features, one warp each, and stages the row's right features (meta rows
+// and descriptors: the temporal window's band, 48 rows each way, passes
+// many candidates) in shared memory once, so each warp walks shared
+// memory.  The TPU's 128-row K
+// tiles and its padding of K and M to tile multiples are not needed: the
+// last tile's spare warps only help stage, and the walk stops at M.
 #include "matcher_common.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;
+constexpr int WARPS = 16;
+constexpr int NT = WARPS * 32;
 
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(NT)
 match_only_kernel(const int* __restrict__ dl, const float* __restrict__ ml,
                   const int* __restrict__ dr, const float* __restrict__ mr,
                   int* __restrict__ dist_out, int* __restrict__ idx_out,
-                  int B, int K, int M, float row_band, float max_disp) {
+                  int K, int M, float row_band, float max_disp, int vec) {
+  extern __shared__ uint4 smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const long long q = static_cast<long long>(blockIdx.x) * WARPS + warp;
-  if (q >= static_cast<long long>(B) * K) return;    // whole warp leaves
-  const int b = static_cast<int>(q / K);
+  const int b = blockIdx.y;
+  const int k = blockIdx.x * WARPS + warp;
+  const bool has = k < K;                 // uniform over the warp
+  const long long q = static_cast<long long>(b) * K + k;
 
-  int best = matcher::BIG, bidx = -1;
-  if (ml[4 * q + 3] > 0.5f) {             // uniform over the warp
-    unsigned d[8];
+  const bool search = has && ml[4 * q + 3] > 0.5f;
+  unsigned d[8] = {};
+  float lx = 0.f, ly = 0.f, llv = 0.f;
+  if (search) {
+    lx = ml[4 * q];
+    ly = ml[4 * q + 1];
+    llv = ml[4 * q + 2];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) d[k] = static_cast<unsigned>(dl[8 * q + k]);
-    matcher::warp_hamming_argmin(
-        d, ml[4 * q], ml[4 * q + 1], ml[4 * q + 2],
-        dr + static_cast<long long>(b) * M * 8,
-        mr + static_cast<long long>(b) * M * 4, M, row_band, max_disp, lane,
-        best, bidx);
+    for (int w = 0; w < 8; ++w) d[w] = static_cast<unsigned>(dl[8 * q + w]);
   }
-  if (lane == 0) {
+  int best, bidx;
+  matcher::block_argmin<NT, true>(
+      search, d, lx, ly, llv, mr + static_cast<long long>(b) * M * 4,
+      dr + static_cast<long long>(b) * M * 8, M, vec != 0, row_band,
+      max_disp, smem, lane, best, bidx);
+  if (has && lane == 0) {
     dist_out[q] = best;
     idx_out[q] = bidx;
   }
@@ -64,9 +73,11 @@ extern "C" int match_fused(const int* dl, const float* ml, const int* dr,
                            const float* mr, int* dist, int* idx, int B, int K,
                            int M, float row_band, float max_disp,
                            cudaStream_t stream) {
-  const long long n = static_cast<long long>(B) * K;
-  const dim3 grid(static_cast<unsigned>((n + WARPS - 1) / WARPS));
-  match_only_kernel<<<grid, WARPS * 32, 0, stream>>>(
-      dl, ml, dr, mr, dist, idx, B, K, M, row_band, max_disp);
+  if (B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>((K + WARPS - 1) / WARPS),
+                  static_cast<unsigned>(B));
+  match_only_kernel<<<grid, NT, matcher::search_smem_bytes<true>(M), stream>>>(
+      dl, ml, dr, mr, dist, idx, K, M, row_band, max_disp,
+      matcher::rows_aligned(mr, dr));
   return static_cast<int>(cudaGetLastError());
 }

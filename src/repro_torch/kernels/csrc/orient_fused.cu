@@ -11,17 +11,18 @@
 // Bound on an H100 SXM at fast.detect's level-0 shape (591 keypoints of
 // one 720 x 1280 image): each covered image pixel read once (at most
 // 0.57 M if no two patches overlapped, 2.3 MB) plus the keypoints and
-// the outputs, under 0.7 us at 3.35 TB/s; about 2,860 float operations
-// a keypoint (709 masked pixels x 2 multiplies and 2 adds, atan2), 1.7 M,
-// 0.03 us at 67 TFLOP/s.  The kernel is bound by bytes, and at this size
-// by its launch.
+// the outputs, under 0.7 us at 3.35 TB/s; about 1,500 instructions a
+// keypoint (709 masked pixels' column sums, atan2) at their pipes' rates
+// (chip_smoke.py orient_bound), under 0.01 us.  The kernel is bound by
+// bytes, and at this size by its launch.
 //
-// Design: K2's, without its second half: one warp per keypoint, four
-// keypoints per 128-thread block, any K (the TPU's padding of K to an
-// 8-keypoint block is gone), each warp loading its patch into shared
-// memory with clamped reads (the reference's edge pad: no padded slab).
-// The patch load, moments and theta are describe_common.cuh's, the same
-// device code K2 runs, so theta and moments are bit-equal to K2's.
+// Design: K2's, without its second half: one warp per keypoint, eight
+// keypoints per 256-thread block, any K (the TPU's padding of K to an
+// 8-keypoint block is gone), each warp reading its raw window row by row
+// with clamped reads (the reference's edge pad: no padded slab) straight
+// into its masked column sums, no shared memory.  The moments are
+// describe_common.cuh's patch_moments, the same device code K2 runs, so
+// theta and moments are bit-equal to K2's.
 //
 // Pixel types: one template, launched as orient_kernel<float>
 // (orient_fused) and orient_kernel<unsigned char> (orient_fused_u8:
@@ -30,15 +31,13 @@
 
 namespace {
 
-using describe::NPIX;
-constexpr int WARPS = 4;
+constexpr int WARPS = 8;
 
 template <typename P>
 __global__ void __launch_bounds__(WARPS * 32)
 orient_kernel(const P* __restrict__ raw, const int* __restrict__ xy,
               float* __restrict__ theta, float* __restrict__ mom, int B,
               int K, int h, int w) {
-  __shared__ P s_raw[WARPS][NPIX];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const long long kp = static_cast<long long>(blockIdx.x) * WARPS + warp;
@@ -47,16 +46,12 @@ orient_kernel(const P* __restrict__ raw, const int* __restrict__ xy,
   const long long img = (kp / K) * h * w;
   const int x = describe::clampi(xy[2 * kp], 0, w - 1);
   const int y = describe::clampi(xy[2 * kp + 1], 0, h - 1);
-  P* pr = s_raw[warp];
-  describe::load_patches<false>(raw + img, static_cast<const P*>(nullptr),
-                                h, w, x, y, lane, pr,
-                                static_cast<P*>(nullptr));
-  __syncwarp();
-
   float m10, m01;
-  const float th = describe::patch_theta(pr, lane, &m10, &m01);
+  describe::patch_moments<false>(raw + img, static_cast<const P*>(nullptr),
+                                 h, w, x, y, lane, static_cast<P*>(nullptr),
+                                 m10, m01);
   if (lane == 0) {
-    theta[kp] = th;
+    theta[kp] = atan2f(m01, m10);
     mom[2 * kp] = m10;
     mom[2 * kp + 1] = m01;
   }

@@ -11,18 +11,20 @@
 //
 // Bound on an H100 SXM at one 720p pair (1000 keypoints, 11 x 11
 // windows, +-5 shifts): 1000 x (121 + 231) float32 pixels in and the
-// 44 KB table out, about 0.4 us at 3.35 TB/s; 1.3 M SAD terms at 3
-// operations, about 0.06 us at 67 TFLOP/s.  Both are far below a
-// launch's latency: the kernel is bound by launch latency.
+// 44 KB table out, about 0.4 us at 3.35 TB/s; their truncation and the
+// SAD terms at their pipes' rates (chip_smoke.py) well under that.  Both
+// are far below a launch's latency: the kernel is bound by launch
+// latency.
 //
-// Design: one warp per keypoint row, eight per block.  The warp reads
-// its patch and strip once, coalesced, into shared memory as int32
-// (the truncation happens there), then reduces each shift's SAD over
-// the warp (matcher::warp_sad, the sweep of the fused and SAD-only
-// kernels) and lanes 0..2R write the table row.  The TPU's 128-row
-// blocks and the padding of K to them are not needed: K is any size.
-// Windows up to MAXP px and sweeps up to +-MAXR px fit the warp's
-// shared buffers; the wrapper refuses larger ones.
+// Design: one warp per keypoint row, eight per block, running the fused
+// matcher's sweep (matcher_common.cuh sweep_rows) on the gathered
+// windows: the warp reads them row by row, lane = column, truncated to
+// int32, through its shared buffer; lane r then holds row r of its patch
+// and strip in registers and sums every shift at once; one transposing
+// reduction leaves shift s in lane s, and lanes 0..2R write the table
+// row.  The TPU's 128-row blocks and the padding of K to them are not
+// needed: K is any size.  Windows up to MAXP px and sweeps up to +-MAXR
+// px are held; the wrapper refuses larger ones.
 #include "matcher_common.cuh"
 
 namespace {
@@ -32,31 +34,29 @@ using matcher::MAXR;
 
 constexpr int WARPS = 8;
 
+template <int PM, int RM>
 __global__ void __launch_bounds__(WARPS * 32)
 sad_search_kernel(const float* __restrict__ lp, const float* __restrict__ rs,
                   int* __restrict__ table, int K, int patch, int sad_range) {
-  __shared__ int s_l[WARPS][MAXP * MAXP];
-  __shared__ int s_r[WARPS][MAXP * (MAXP + 2 * MAXR)];
+  __shared__ int s_buf[WARPS][matcher::SweepBuffer<PM, RM>::WORDS];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int q = blockIdx.x * WARPS + warp;
   if (q >= K) return;                     // whole warp leaves
-  const int sw = patch + 2 * sad_range;   // strip width
-  const float* l = lp + static_cast<long long>(q) * patch * patch;
-  const float* r = rs + static_cast<long long>(q) * patch * sw;
-  for (int i = lane; i < patch * patch; i += 32)
-    s_l[warp][i] = static_cast<int>(l[i]);
-  for (int i = lane; i < patch * sw; i += 32)
-    s_r[warp][i] = static_cast<int>(r[i]);
-  __syncwarp();
-  const int sweep = 2 * sad_range + 1;
-  int mine = 0;
-  for (int s = 0; s < sweep; ++s) {
-    const int acc = matcher::warp_sad(s_l[warp], s_r[warp], patch,
-                                      sad_range, s, lane);
-    if (lane == s) mine = acc;
-  }
-  if (lane < sweep) table[static_cast<long long>(q) * sweep + lane] = mine;
+  // The paper's <11, 5> sizes as constants; the generic <MAXP, MAXR>
+  // instantiation takes them from the arguments.
+  constexpr bool kGeneric = PM == MAXP && RM == MAXR;
+  const int pw = kGeneric ? patch : PM, pr = kGeneric ? sad_range : RM;
+  const int sw = pw + 2 * pr;             // strip width
+  const matcher::GatheredRows left{lp + static_cast<long long>(q) * pw * pw,
+                                   pw};
+  const matcher::GatheredRows right{rs + static_cast<long long>(q) * pw * sw,
+                                    sw};
+  int sads[matcher::Shifts<RM>::GROUPS];
+  matcher::sweep_rows<PM, RM, true>(left, right, pw, pr, lane, s_buf[warp],
+                                    sads);
+  matcher::sweep_store<RM>(sads, pr, lane,
+                           table + static_cast<long long>(q) * (2 * pr + 1));
 }
 
 }  // namespace
@@ -67,7 +67,11 @@ extern "C" int sad_search(const float* lp, const float* rs, int* table,
   if (patch < 1 || patch > MAXP || sad_range < 0 || sad_range > MAXR)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>((K + WARPS - 1) / WARPS));
-  sad_search_kernel<<<grid, WARPS * 32, 0, stream>>>(lp, rs, table, K,
-                                                     patch, sad_range);
+  if (patch == 11 && sad_range == 5)
+    sad_search_kernel<11, 5><<<grid, WARPS * 32, 0, stream>>>(
+        lp, rs, table, K, patch, sad_range);
+  else
+    sad_search_kernel<MAXP, MAXR><<<grid, WARPS * 32, 0, stream>>>(
+        lp, rs, table, K, patch, sad_range);
   return static_cast<int>(cudaGetLastError());
 }

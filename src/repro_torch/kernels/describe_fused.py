@@ -6,7 +6,8 @@ patch and compute the circular-mask moments (m10, m01) and theta =
 atan2(m01, m10) (paper Eq. 1); quantize theta to one of 12 bins of 30
 degrees; read that bin's ``STEER_LUT`` row and form the 256 tau bits
 p(A) < p(B) on the 31x31 smoothed patch (paper Eqs. 2-3); pack bit i
-into word i // 32.
+into word i // 32.  The kernels read the LUT packed, each pair's two
+indices in one word (``ref.steer_lut_packed``).
 
 Inputs use the dense stage's flat slab layout (``SlabTable``): the raw
 levels and their blur lie in two flat buffers of that layout.  The
@@ -43,8 +44,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.frontend_fused import SlabTable, slab_table
 from repro_torch.kernels.ref import (INV_ANGLE_STEP, PATCH, RADIUS,
                                      clamped_index, lut_descriptor,
-                                     patch_theta, patch_theta_int, steer_lut,
-                                     theta_to_bin)
+                                     patch_theta, patch_theta_int,
+                                     steer_lut_packed, theta_to_bin)
 
 PIXELS = (torch.float32, torch.uint8)
 KERNEL = _build.CudaKernel("describe_fused", "describe_fused_pyramid",
@@ -119,7 +120,7 @@ def describe_fused_pyramid_cuda(raw: torch.Tensor, smoothed: torch.Tensor,
     mom = torch.empty((b, k, 2), dtype=torch.float32, device=dev)
     desc = torch.empty((b, k, 8), dtype=torch.int32, device=dev)
     if b * k:
-        KERNEL(dev, steer_lut(str(dev)).data_ptr(), raw.data_ptr(),
+        KERNEL(dev, steer_lut_packed(str(dev)).data_ptr(), raw.data_ptr(),
                smoothed.data_ptr(), slabs.table.data_ptr(), xy.data_ptr(),
                col_level.data_ptr(), theta.data_ptr(), mom.data_ptr(),
                desc.data_ptr(), b, k, INV_ANGLE_STEP,
@@ -170,9 +171,10 @@ def describe_fused_cuda(raw: torch.Tensor, smoothed: torch.Tensor,
     mom = torch.empty((b, k, 2), dtype=torch.float32, device=dev)
     desc = torch.empty((b, k, 8), dtype=torch.int32, device=dev)
     if b * k:
-        LEVEL_KERNEL(dev, steer_lut(str(dev)).data_ptr(), raw.data_ptr(),
-                     smoothed.data_ptr(), xy.data_ptr(), theta.data_ptr(),
-                     mom.data_ptr(), desc.data_ptr(), b, k, h, w,
+        LEVEL_KERNEL(dev, steer_lut_packed(str(dev)).data_ptr(),
+                     raw.data_ptr(), smoothed.data_ptr(), xy.data_ptr(),
+                     theta.data_ptr(), mom.data_ptr(), desc.data_ptr(), b,
+                     k, h, w,
                      INV_ANGLE_STEP, variant=_build.variant_of(raw))
     return theta, mom, desc
 

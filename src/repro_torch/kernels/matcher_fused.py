@@ -73,6 +73,9 @@ def match_rectify_fused_cuda(desc_l, meta_l, desc_r, meta_r, img_l, img_r,
                          "15 px and sweeps up to +-15 px")
     n_pairs, k = desc_l.shape[0], desc_l.shape[1]
     m = desc_r.shape[1]
+    if m == 0:
+        raise ValueError("the fused matcher needs a right feature: the "
+                         "gate's fallback reads right feature 0")
     _, h, w = img_l.shape
     dist = torch.empty((n_pairs, k), dtype=torch.int32, device=dev)
     idx = torch.empty((n_pairs, k), dtype=torch.int32, device=dev)

@@ -226,6 +226,15 @@ def steer_lut(device: str) -> torch.Tensor:
     return torch.from_numpy(pattern.STEER_LUT.copy()).to(device)
 
 
+@functools.lru_cache(maxsize=8)
+def steer_lut_packed(device: str) -> torch.Tensor:
+    """The steering ROM as the sparse FE kernels read it: (12, 256)
+    int32, each pair's two patch indices (< 961) in one word, A in the
+    low 16 bits and B in the high 16."""
+    lut = steer_lut(device)
+    return (lut[..., 0] | (lut[..., 1] << 16)).contiguous()
+
+
 def lut_descriptor(sm_patches: torch.Tensor,
                    bins: torch.Tensor) -> torch.Tensor:
     """(..., 31, 31) smoothed patches + (...,) steering bins -> (..., 8)

@@ -150,6 +150,15 @@ def assert_sparse_parity(theta_a, mom_a, desc_a, theta_b, mom_b, desc_b,
     return int(edge.sum())
 
 
+def abs_moment_sums(patches: torch.Tensor) -> torch.Tensor:
+    """(..., 31, 31) raw patches -> (..., 2) sum|x * p| and sum|y * p|,
+    the scale of the float-frame moment bound."""
+    from repro_torch.kernels.ref import moment_grids
+    xg, yg = moment_grids(patches.device)
+    return torch.stack([(patches * xg).abs().sum((-2, -1)),
+                        (patches * yg).abs().sum((-2, -1))], -1)
+
+
 def _level_keys(xy, valid):
     """{(x, y) of a valid row (level-0 float coords): row index}."""
     return {tuple(map(float, xy[i])): i for i in np.flatnonzero(valid)}
@@ -311,3 +320,98 @@ def matcher_case(seed, k=40, m=48, p=2, ties=False, half_centers=False,
     il = rng.uniform(0, 255, (p, h, w)).astype(np.float32)
     ir = rng.uniform(0, 255, (p, h, w)).astype(np.float32)
     return (dl, ml.astype(np.float32), dr, mr.astype(np.float32), il, ir)
+
+
+def _flip(desc: np.ndarray, n: int, rng, avoid=()) -> np.ndarray:
+    """``desc`` (8,) uint32 with ``n`` distinct bits flipped, none of the
+    bit positions in ``avoid``."""
+    free = np.setdiff1d(np.arange(256), np.asarray(avoid, np.int64))
+    out = desc.copy()
+    for b in rng.choice(free, n, replace=False):
+        out[b // 32] ^= np.uint32(1) << np.uint32(b % 32)
+    return out
+
+
+def _images(rng, p, h, w):
+    return tuple(rng.uniform(0, 255, (p, h, w)).astype(np.float32)
+                 for _ in range(2))
+
+
+def adversarial_matcher_cases():
+    """[(name, (dl, ml, dr, mr, il, ir))] fused-matcher inputs aimed at the
+    search's and the SAD sweep's corners (descriptors uint32, meta rows
+    float32 (x, y, level, valid), float images of 48 x 72):
+
+    * ``crowded``: M = 1100 right features (more than one 1024-row
+      staging chunk), every one inside every left feature's row band, at
+      distances 1-3 from the left descriptor except planted zeros: in
+      pair 0 only at indices 1030 and 1057 (the second chunk, lanes 6
+      and 1), in pair 1 at 37, 70 and 1029 (lanes 5, 6 and 5, both
+      chunks); the lowest index must win;
+    * ``gate``: each left feature sees one candidate, at distance exactly
+      64 (= max_hamming, accepted) or 65 (rejected: fallback to right
+      feature 0);
+    * ``empty``: every other left feature invalid, and the second half
+      with no candidate (every right feature to its right);
+    * ``edges``: window centers on, half a pixel inside and past the
+      image edges (the clamps);
+    * ``ragged``: K = 17 and M = 37, multiples of neither the 16-feature
+      tile nor the 32 lanes;
+    * ``k0``: no left feature; ``m0``: no right feature (a match-only
+      case: the fused matcher's fallback needs right feature 0).
+    """
+    rng = np.random.RandomState(11)
+    h, w = 48, 72
+    cases = []
+
+    p, k, m = 2, 20, 1100
+    base = rng.randint(0, 2**32, (p, 8), dtype=np.uint64).astype(np.uint32)
+    dl = np.repeat(base[:, None], k, 1)
+    zeros = ((1030, 1057), (37, 70, 1029))
+    dr = np.stack([np.stack([base[q] if j in zeros[q] else
+                             _flip(base[q], rng.randint(1, 4), rng)
+                             for j in range(m)]) for q in range(p)])
+    mr = np.stack([rng.uniform(40.0, 46.0, (p, m)),
+                   20.0 + rng.uniform(-1.0, 1.0, (p, m)),
+                   np.zeros((p, m)), np.ones((p, m))], -1)
+    ml = np.stack([rng.uniform(64.0, 70.0, (p, k)), np.full((p, k), 20.0),
+                   np.zeros((p, k)), np.ones((p, k))], -1)
+    cases.append(("crowded", (dl, ml, dr, mr) + _images(rng, p, h, w)))
+
+    p, k = 2, 16
+    base = rng.randint(0, 2**32, (p, 8), dtype=np.uint64).astype(np.uint32)
+    dl = np.repeat(base[:, None], k, 1)
+    dr = np.stack([np.stack([_flip(base[q], 64 + j % 2, rng)
+                             for j in range(k)]) for q in range(p)])
+    ys = np.tile(np.arange(k) * 2.9 + 1.0, (p, 1))
+    mr = np.stack([rng.uniform(10.0, 60.0, (p, k)), ys, np.ones((p, k)),
+                   np.ones((p, k))], -1)
+    ml = mr.copy()
+    ml[..., 0] += rng.uniform(0.0, 10.0, (p, k))
+    cases.append(("gate", (dl, ml, dr, mr) + _images(rng, p, h, w)))
+
+    dl, ml, dr, mr, il, ir = matcher_case(12, k=16, m=40, h=h, w=w)
+    ml = ml.copy()
+    ml[:, ::2, 3] = 0.0
+    ml[:, 8:, 0] = -10.0
+    cases.append(("empty", (dl, ml, dr, mr, il, ir)))
+
+    edge_x = np.array([-3.0, -0.5, 0.0, 0.5, 4.5, w - 1.5, w - 1.0, w - 0.5,
+                       w + 2.0, 5.5, 2.0, w - 3.0, 36.0, 0.0, w - 1.0, 10.0])
+    edge_y = np.array([-2.0, 0.5, 0.0, h - 0.5, h + 5.0, 1.5, h - 1.0, -0.5,
+                       3.0, h - 1.5, h - 2.0, 2.5, 0.0, h - 1.0, h + 1.0,
+                       h - 0.5])
+    dl, _, dr, _, il, ir = matcher_case(13, k=16, m=16, h=h, w=w)
+    meta = np.stack([np.tile(edge_x, (2, 1)), np.tile(edge_y, (2, 1)),
+                     np.zeros((2, 16)), np.ones((2, 16))], -1)
+    dr = dl.copy()
+    cases.append(("edges", (dl, meta.astype(np.float32), dr,
+                            meta.astype(np.float32), il, ir)))
+
+    cases.append(("ragged", matcher_case(14, k=17, m=37, h=h, w=w)))
+    dl, ml, dr, mr, il, ir = matcher_case(15, h=h, w=w)
+    cases.append(("k0", (dl[:, :0], ml[:, :0], dr, mr, il, ir)))
+    cases.append(("m0", (dl, ml, dr[:, :0], mr[:, :0], il, ir)))
+    return [(name, tuple(np.ascontiguousarray(
+        a, np.uint32 if a.dtype == np.uint32 else np.float32) for a in c))
+        for name, c in cases]

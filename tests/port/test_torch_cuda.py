@@ -42,7 +42,8 @@ from repro_torch.kernels import (describe_fused, fast_detect, frontend_fused,
                                  matcher_fused, ops, sad_fused, sad_rectify)
 from repro_torch.kernels.ref import nms3
 
-from parity import (assert_sparse_parity, matcher_case, scene_frames,
+from parity import (abs_moment_sums, adversarial_matcher_cases,
+                    assert_sparse_parity, matcher_case, scene_frames,
                     textured_levels)
 
 pytestmark = pytest.mark.gpu
@@ -166,34 +167,99 @@ def test_dense_kernels_on_adversarial_frames(cuda, integer):
 
 
 def test_sparse_kernel_equals_plain(cuda):
-    levels = [torch.from_numpy(l).to(cuda)
-              for l in textured_levels(2, SHAPES, integer=True)]
-    dense = ops.fast_blur_nms_pyramid(levels, 20.0)
+    """K2 on integer-valued, float and uint8 levels, keypoints up to 8 px
+    past every edge (the clamp), (40, 40) and (21, 16) a level: 4 x 37
+    keypoints, no multiple of the 8-keypoint block."""
     rng = np.random.RandomState(0)
-    xys = [torch.from_numpy(np.stack(
-        [rng.randint(-8, w + 8, (4, 40)), rng.randint(-8, h + 8, (4, 40))],
-        -1).astype(np.int32)).to(cuda) for h, w in SHAPES]
-    xy = torch.cat(xys, 1).contiguous()
-    col = ops._col_levels((40, 40), str(xy.device))
-    args = (ops.flat_levels(levels), ops.flat_levels([b for b, _ in dense]),
-            ops._slabs_of(levels), xy, col)
-    got = describe_fused.describe_fused_pyramid_cuda(*args)
-    want = describe_fused.describe_fused_pyramid_plain(*args)
-    assert_sparse_parity(*[t.cpu() for t in want], *[t.cpu() for t in got],
-                         None, integer=True)
+    for integer, ks in ((True, (40, 40)), (True, (21, 16)), (False, (21, 16))):
+        levels = [torch.from_numpy(l).to(cuda) for l in
+                  textured_levels(2, SHAPES, integer=integer)]
+        dense = ops.fast_blur_nms_pyramid(levels, 20.0)
+        xys = [torch.from_numpy(np.stack(
+            [rng.randint(-8, w + 8, (4, k)), rng.randint(-8, h + 8, (4, k))],
+            -1).astype(np.int32)).to(cuda) for (h, w), k in zip(SHAPES, ks)]
+        xy = torch.cat(xys, 1).contiguous()
+        col = ops._col_levels(ks, str(xy.device))
+        raw = ops.flat_levels(levels)
+        sm = ops.flat_levels([b for b, _ in dense])
+        slabs = ops._slabs_of(levels)
+        pixels = [(raw, sm)] + ([(raw.to(torch.uint8), sm.to(torch.uint8))]
+                                if integer else [])
+        for r, s in pixels:
+            got = describe_fused.describe_fused_pyramid_cuda(r, s, slabs, xy,
+                                                             col)
+            want = describe_fused.describe_fused_pyramid_plain(r, s, slabs,
+                                                               xy, col)
+            s_abs = None
+            if not integer:
+                b = xy.shape[0]
+                slab = col.long()[None, :] * b + torch.arange(
+                    b, device=cuda)[:, None]
+                s_abs = abs_moment_sums(describe_fused._slab_patches(
+                    r, slab, slabs.table, xy)).cpu()
+            assert_sparse_parity(*[t.cpu() for t in want],
+                                 *[t.cpu() for t in got], s_abs,
+                                 integer=integer)
 
 
 def test_matcher_kernel_equals_plain(cuda):
-    for case in (dict(seed=0), dict(seed=1, ties=True),
-                 dict(seed=2, half_centers=True), dict(seed=3, k=5, m=130)):
-        dl, ml, dr, mr, il, ir = matcher_case(**case)
+    """K3 on float and uint8 images, and K4 and K9 on the same features,
+    bit-equal to their plain versions: random cases, planted ties,
+    half-pixel centers, and ``parity.adversarial_matcher_cases`` (a
+    crowded row band past one staging chunk, ties across lanes and
+    chunks, distances at max_hamming, no candidate, invalid left
+    features, centers at the clamps, ragged K and M, K = 0; M = 0 for the
+    match-only kernels, which the fused one refuses), and meta rows and
+    descriptors that lie 4 but not 16 bytes aligned."""
+    kw = dict(row_band=2.0, max_disparity=24.0, max_hamming=64)
+    kw4 = dict(row_band=2.0, max_disparity=24.0)
+    cases = [(str(c), matcher_case(**c)) for c in (
+        dict(seed=0), dict(seed=1, ties=True), dict(seed=2, half_centers=True),
+        dict(seed=3, k=5, m=130))] + adversarial_matcher_cases()
+    for name, (dl, ml, dr, mr, il, ir) in cases:
         args = [torch.from_numpy(a).to(cuda) for a in
                 (dl.view(np.int32), ml, dr.view(np.int32), mr, il, ir)]
-        kw = dict(row_band=2.0, max_disparity=24.0, max_hamming=64)
-        got = matcher_fused.match_rectify_fused_cuda(*args, **kw)
-        want = matcher_fused.match_rectify_fused_plain(*args, **kw)
+        if not dr.shape[1]:
+            # the gate's fallback reads right feature 0: M = 0 is refused
+            with pytest.raises(ValueError, match="right feature"):
+                matcher_fused.match_rectify_fused_cuda(*args, **kw)
+        else:
+            for imgs in (args[4:], [a.round().clamp(0, 255).to(torch.uint8)
+                                    for a in args[4:]]):
+                got = matcher_fused.match_rectify_fused_cuda(*args[:4], *imgs,
+                                                             **kw)
+                want = matcher_fused.match_rectify_fused_plain(*args[:4],
+                                                               *imgs, **kw)
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b), (name, imgs[0].dtype)
+        got = match_fused.match_fused_cuda(*args[:4], **kw4)
+        want = match_fused.match_fused_plain(*args[:4], **kw4)
         for a, b in zip(got, want):
-            assert torch.equal(a, b)
+            assert torch.equal(a, b), name
+        for p in range(dl.shape[0]):
+            one = [a[p].contiguous() for a in args[:4]]
+            got = hamming_match.hamming_match_cuda(*one, **kw4)
+            want = hamming_match.hamming_match_plain(*one, **kw4)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (name, p)
+    # meta rows and descriptors 4 but not 16 bytes aligned (the kernels
+    # then stage them with scalar loads)
+    dl, ml, dr, mr, il, ir = matcher_case(seed=7, k=33, m=70)
+    args = []
+    for a in (dl.view(np.int32), ml, dr.view(np.int32), mr):
+        buf = torch.zeros(a.size + 1, dtype=torch.from_numpy(a).dtype,
+                          device=cuda)
+        buf[1:] = torch.from_numpy(a).reshape(-1).to(cuda)
+        args.append(buf[1:].view(a.shape))
+    assert args[1].data_ptr() % 16 == 4
+    imgs = [torch.from_numpy(a).to(cuda) for a in (il, ir)]
+    for a, b in zip(matcher_fused.match_rectify_fused_cuda(*args, *imgs, **kw),
+                    matcher_fused.match_rectify_fused_plain(*args, *imgs,
+                                                            **kw)):
+        assert torch.equal(a, b), "unaligned"
+    for a, b in zip(match_fused.match_fused_cuda(*args, **kw4),
+                    match_fused.match_fused_plain(*args, **kw4)):
+        assert torch.equal(a, b), "unaligned"
 
 
 def test_process_frame_is_three_launches_and_matches_cpu(cuda):
