@@ -144,12 +144,33 @@ failure (the script then exits non-zero and prints no result):
       integer instructions at the int32 pipe's rate), the uint8 and f32
       frames' latency, median of 20 in turns, and each session's device
       time by kernel over 5 frames (``torch.profiler``);
-  12. print the kernels' JSON line (the uint8 variants as rows
+  12. fleet frames at full width (``fleet_phase``), from
+      ``render_fleet_sequence`` of phase 4's scene: ``process_fleet`` on
+      8 rigs exactly 1 launch each of K1, K2, K3, every rig's slice
+      bit-equal to that rig's ``process_frame``, and so on 16 and 32
+      rigs (the 8 repeated); with a ``camera_mask``
+      (rig 1's back pair and rig 2 dead) 3 again, equal to the per-rig
+      masked frames; on the frames rounded to uint8 in a uint8 session
+      3 launches of the uint8 variants, bit-equal to the f32 fleet;
+      localized, two steps of 4 launches each (K4 once for the fleet),
+      points bit-equal and poses within 1e-5 / 1e-4 of a per-rig
+      ``process_frame`` loop, and ``run_fleet`` over T = 6 steps of 4
+      rigs 3T + 1, each rig's trajectory under phase 6's ATE/RPE limits;
+      the card's ``process_fleet`` against the CPU session's on 2 rigs at
+      96 x 128 (integer-valued frames, the CPU's pyramid levels); every
+      input that K1-K4 received in the counted fleet calls held against
+      its plain version on the card (dense FE and matchers bit-equal,
+      sparse FE by the rule below); then
+      the fleet frame's latency at 1, 2, 4 and 8 rigs (median of 20, in
+      turns) and the 8-rig fleet frame's device profile;
+  13. print the kernels' JSON line (the uint8 variants as rows
       ``<kernel>_u8``, each with its float kernel's ``float_*`` numbers
       from the same inputs; the sparse FE's and fused matcher's rows with
-      their ``textured`` and ``crowded`` runs; the empty launch under
-      ``empty_launch``), then ``{"ok": true, "device": ...}`` as the last
-      line.
+      their ``textured`` and ``crowded`` runs; K1-K4 and their uint8
+      variants with their launches on phase 12's path under
+      ``fleet_launches``; the fleet's timings under ``fleet``; the empty
+      launch under ``empty_launch``), then ``{"ok": true, "device":
+      ...}`` as the last line.
 
 Tolerances: integer and bool outputs, blur and score are bit-equal.
 theta and the moments are equal on integer-valued frames (every sum is
@@ -482,6 +503,15 @@ def abs_moment_sums(patches: torch.Tensor) -> torch.Tensor:
                         (patches * yg).abs().sum((-2, -1))], -1)
 
 
+def sparse_abs_sums(raw, slabs, xy, col) -> torch.Tensor:
+    """``abs_moment_sums`` of the raw patches the sparse FE (K2) reads
+    for (B, Ktot) keypoints of column levels ``col``."""
+    from repro_torch.kernels.describe_fused import _slab_patches
+    b = xy.shape[0]
+    slab = col.long()[None, :] * b + torch.arange(b, device=xy.device)[:, None]
+    return abs_moment_sums(_slab_patches(raw, slab, slabs.table, xy))
+
+
 def hold_theta(th_k, mom_k, th_p, mom_p, s_abs, integer: bool, what: str,
                *, same_library: bool = True):
     """Theta and moments of a kernel (``_k``) against another computation
@@ -759,13 +789,7 @@ def check_sparse(levels, dense, cfg, kind: str, integer: bool):
     out_k = de.describe_fused_pyramid_cuda(raw, sm, slabs, xy, col)
     out_p = de.describe_fused_pyramid_plain(raw, sm, slabs, xy, col)
     torch.cuda.synchronize()
-    s_abs = None
-    if not integer:
-        from repro_torch.kernels.describe_fused import _slab_patches
-        b = xy.shape[0]
-        slab = col.long()[None, :] * b + torch.arange(
-            b, device=xy.device)[:, None]
-        s_abs = abs_moment_sums(_slab_patches(raw, slab, slabs.table, xy))
+    s_abs = None if integer else sparse_abs_sums(raw, slabs, xy, col)
     err, d_ulps, n_edge, n_bins = hold_sparse(out_k, out_p, s_abs, integer,
                                               "sparse FE")
     log(f"[sparse FE/{kind}] {xy.shape[0] * xy.shape[1]} keypoints: max "
@@ -1086,25 +1110,29 @@ def stage_times(vs, images, reps: int = REPS):
             _level_features(l, cfg, xy, v, ok, th, d)
             for l, ((xy, v, ok), (th, _m, d)) in enumerate(
                 zip(topk, sparse))]))
-        li, ri = vs._li, vs._ri
+        li, ri = vs._flat_pair_indices(1)
         fl = map_fields(lambda x: x[li], feats)
         fr = map_fields(lambda x: x[ri], feats)
         step("FM (K3) + depth", lambda: matching.match_pair_fused(
-            images[li], images[ri], fl, fr, cfg, vs._intr))
+            images[li], images[ri], fl, fr, cfg, vs._fm_intr(1)))
     return {k: statistics.median(v[2:]) for k, v in times.items()}
 
 
-def profile_frames(vs, images, n: int = 5) -> dict:
+def profile_frames(vs, images, n: int = 5, call=None,
+                   summary: dict | None = None) -> dict:
     """Device time by kernel over ``n`` frames (torch.profiler) and the
-    device's idle share of the frame.  Returns {kernel name: device ms
-    per frame}."""
+    device's idle share of the frame; ``call`` replaces
+    ``vs.process_frame(images)`` as the frame.  Returns {kernel name:
+    device ms per frame}; ``summary`` (a dict) receives the wall and
+    busy ms a frame, the idle share and the device kernels a frame."""
     from torch.profiler import ProfilerActivity, profile
+    call = call or (lambda: vs.process_frame(images))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            vs.process_frame(images)
+            call()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n
     rows = []
@@ -1123,6 +1151,9 @@ def profile_frames(vs, images, n: int = 5) -> dict:
     log(f"[profile] wall {wall:.4f} ms/frame, device busy {busy:.4f} "
         f"ms/frame, idle share {1 - busy / wall:.4f}, "
         f"{sum(r[1] for r in rows):.0f} device kernels/frame")
+    if summary is not None:
+        summary.update(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
+                       device_kernels=sum(r[1] for r in rows))
     for ms, cnt, key in rows[:12]:
         log(f"[profile]   {ms:.4f} ms/frame  x{cnt:.0f}  {key[:100]}")
     return {key: ms for ms, _, key in rows}
@@ -1539,7 +1570,7 @@ def localized_phase(cfg, dev):
     # the stages of a localized frame, each closed by a synchronize
     stages = {"frontend (K1-K3)": [], "backend (points + K4 + solve)": [],
               "solve": []}
-    prev = vs._loc_state
+    prev = vs._loc_state["frame"]
     for f in stream[:REPS]:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1691,7 +1722,7 @@ def unfused_phase(card, frame0, images, intr, out4):
     for kind in ("float", "integer"):
         frame = frame0 if kind == "float" else torch.round(frame0)
         mf, df = matching.match_pair_fused(frame[li], frame[ri], fl_all,
-                                           fr_all, cfg, card._intr)
+                                           fr_all, cfg, card._fm_intr(1))
         for p, (cl, cr) in enumerate(card.rig.pairs):
             what = f"{kind} pair ({cl}, {cr})"
             fl = map_fields(lambda x: x[p], fl_all)
@@ -2271,6 +2302,315 @@ def uint8_phase(frame, intr, seq_rig, seq_frames, seq_poses, cfg, dev):
     return total, stats, latency
 
 
+FLEET_RIGS = 8
+FLEET_SIZES = (1, 2, 4, 8)
+FLEET_LOC_RIGS = 4
+FLEET_BIG = (16, 32)
+
+
+def rig_slice(out, r):
+    """Rig ``r`` of a fleet output (its leading axis)."""
+    from repro_torch.core.types import map_fields
+    return map_fields(lambda x: x[r], out)
+
+
+def hold_fleet_card_vs_cpu(got, want, what: str) -> int:
+    """A card ``StereoOutput`` against the CPU session's on the same
+    integer-valued frames and pyramid levels: xy, level, score and valid
+    bit-equal, theta within 2 ulp (the card's ``atan2f`` against the
+    CPU's ``atan2``), descriptors equal away from a bin edge (4 ulp),
+    and, where no descriptor differs, every match and depth field equal.
+    Returns the count of descriptors that differ at a bin edge."""
+    from repro_torch.core.types import map_fields
+    got = map_fields(lambda x: x.cpu(), got)
+    n_diff = 0
+    for side in ("features_l", "features_r"):
+        fg, fc = getattr(got, side), getattr(want, side)
+        for name in ("xy", "level", "score", "valid"):
+            equal_or_raise(getattr(fg, name), getattr(fc, name),
+                           f"{what} {side}.{name}")
+        if ulps(fg.theta, fc.theta) > 2:
+            raise AssertionError(f"{what}: theta differs by over 2 ulp")
+        edge = near_bin_edge(fc.theta, 4.0 * torch.from_numpy(
+            np.spacing(np.abs(fc.theta.numpy()))))
+        diff = (fg.desc != fc.desc).any(-1)
+        if bool((diff & ~edge).any()):
+            raise AssertionError(f"{what}: descriptors differ away from a "
+                                 "bin edge")
+        n_diff += int(diff.sum())
+    if n_diff == 0:
+        equal_fields(got.matches, want.matches, f"{what} matches")
+        equal_fields(got.depth, want.depth, f"{what} depth")
+    return n_diff
+
+
+def hold_path_calls(calls: dict, what: str) -> float:
+    """Every input that K1-K4's dispatchers received on a path
+    (``calls``: kernel name -> ``recorded`` calls) held against the
+    kernel's plain version on the card: the dense FE and both matchers
+    bit-equal, the sparse FE by the module note's rule (integer-valued
+    slabs when every raw pixel is an integer).  Returns the largest
+    moment difference."""
+    from repro_torch.kernels import describe_fused as de
+    from repro_torch.kernels import frontend_fused as fe
+    from repro_torch.kernels import match_fused as mo
+    from repro_torch.kernels import matcher_fused as mf
+    plain = {"frontend_fused_pyramid": fe.frontend_fused_pyramid_plain,
+             "describe_fused_pyramid": de.describe_fused_pyramid_plain,
+             "match_rectify_fused": mf.match_rectify_fused_plain,
+             "match_fused": mo.match_fused_plain}
+    err = 0.0
+    for name, recs in calls.items():
+        if name != "describe_fused_pyramid":
+            check_recorded(recs, plain[name], f"{what} {name}")
+            continue
+        for args, kw, got in recs:
+            raw, _, slabs, xy, col = args
+            integer = (raw.dtype == torch.uint8
+                       or bool((raw == torch.round(raw)).all()))
+            s_abs = None if integer else sparse_abs_sums(raw, slabs, xy, col)
+            err = max(err, hold_sparse(got, plain[name](*args, **kw), s_abs,
+                                       integer, f"{what} {name}")[0])
+    return err
+
+
+def fleet_phase(cfg, dev):
+    """Fleet frames at full width (phase 12): ``render_fleet_sequence``
+    of the 720p scene (1,600 landmarks, seed 0), every count set to 0
+    just before each call and read just after.
+
+    ``process_fleet`` on 8 rigs: exactly 1 launch each of K1, K2, K3,
+    and each rig's slice bit-equal to that rig's ``process_frame`` on
+    the card, on 16 and 32 rigs (the 8 repeated) too; with a
+    ``camera_mask`` (rig 1's back pair dead, rig 2 all dead) still 3, equal to the per-rig masked frames, the dead rig
+    finite with nothing valid; on the frames rounded to uint8 in a
+    uint8 session 3 launches of the uint8 variants, bit-equal to the f32
+    fleet on the same integer-valued frames.  Localized: two
+    ``process_fleet`` steps of 4 launches each (K4 once for the fleet),
+    points bit-equal and poses within 1e-5 / 1e-4 of a per-rig
+    ``process_frame`` loop (``valid`` and inliers equal); ``run_fleet``
+    over T = 6 steps of 4 rigs 3T + 1 launches, each rig's trajectory
+    under phase 6's ATE/RPE limits.  The card's ``process_fleet``
+    against the CPU session's on 2 rigs at 96 x 128, integer-valued
+    frames, both fed the CPU's pyramid levels.  Every input that K1-K4
+    received in the counted calls is held against the kernel's plain
+    version (``hold_path_calls``).  Then the fleet frame's latency at
+    1, 2, 4 and 8 rigs (median of 20, in turns, host clock around the
+    call plus a synchronize) and the 8-rig fleet frame's device
+    profile.  Returns (the launches of each kernel summed over
+    the counted calls, those of each uint8 variant, the timings)."""
+    from repro_torch.core import (ORBConfig, PipelineConfig, RigConfig,
+                                  VisualSystem, pyramid)
+    from repro_torch.core.types import map_fields
+    from repro_torch.data import scenes
+    from repro_torch.kernels import describe_fused as de
+    from repro_torch.kernels import frontend_fused as fe
+    from repro_torch.kernels import match_fused as mo
+    from repro_torch.kernels import matcher_fused as mf
+    from repro_torch.kernels import ops
+    scene = scenes.SceneConfig(height=cfg.height, width=cfg.width,
+                               n_points=1600, seed=0)
+    seq8 = scenes.render_fleet_sequence(scene, 2, FLEET_RIGS)
+    rig = RigConfig.quad(seq8.intrinsics)
+    vs = VisualSystem(rig, PipelineConfig(orb=cfg), device="cuda")
+    fleet = torch.from_numpy(seq8.frames[0]).to(dev)
+    total = dict.fromkeys(ops.KERNELS, 0)
+    total_u8 = dict.fromkeys(ops.KERNELS, 0)
+    frame_k = {n: 1 for n in ops.FRAME_KERNELS}
+
+    held = {"calls": 0, "moment_err": 0.0}
+
+    def count(fn, want, what, want_u8=None):
+        """Count the launches of one fleet call, then hold every input
+        its kernels received against their plain versions."""
+        with recorded(fe, "frontend_fused_pyramid") as r1, \
+                recorded(de, "describe_fused_pyramid") as r2, \
+                recorded(mf, "match_rectify_fused") as r3, \
+                recorded(mo) as r4:
+            if want_u8 is None:
+                out, counts = counted(fn, want, what)
+            else:
+                out = counted_u8(fn, want, want_u8, what, total_u8)
+                counts = read_counts()
+        for n, c in counts.items():
+            total[n] += c
+        calls = dict(zip(LOC_KERNELS, (r1, r2, r3, r4)))
+        held["moment_err"] = max(held["moment_err"],
+                                 hold_path_calls(calls, what))
+        held["calls"] += sum(len(r) for r in calls.values())
+        return out
+
+    out = count(lambda: vs.process_fleet(fleet), frame_k,
+                f"process_fleet of {FLEET_RIGS} rigs is 3 launches")
+    if tuple(out.features_l.desc.shape) != (FLEET_RIGS, 2, cfg.max_features,
+                                            8):
+        raise AssertionError("unexpected fleet feature shapes")
+    frames = [vs.process_frame(fleet[r]) for r in range(FLEET_RIGS)]
+    for r in range(FLEET_RIGS):
+        equal_fields(rig_slice(out, r), frames[r],
+                     f"fleet rig {r} vs its process_frame")
+    for t in (out.features_l.theta, out.depth.depth, out.depth.disparity,
+              out.depth.xy_right):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError("fleet: non-finite output")
+    nd = out.depth.valid.sum(-1).tolist()
+    if min(min(d) for d in nd) < 1:
+        raise AssertionError("fleet: a pair has no valid depth")
+    log(f"[fleet] {FLEET_RIGS} rigs: 3 launches (K1, K2, K3 once each); "
+        f"every rig bit-equal to its process_frame; depths {nd}")
+    for n in FLEET_BIG:
+        big = count(lambda: vs.process_fleet(fleet.repeat(
+            n // FLEET_RIGS, 1, 1, 1)), frame_k,
+            f"process_fleet of {n} rigs is 3 launches")
+        for r in range(n):
+            equal_fields(rig_slice(big, r), frames[r % FLEET_RIGS],
+                         f"{n}-rig fleet rig {r} vs its process_frame")
+        del big
+    log(f"[fleet] {' and '.join(map(str, FLEET_BIG))} rigs (the 8 rigs "
+        "repeated): 3 launches each, every rig bit-equal to its "
+        "process_frame")
+
+    mask = np.ones((FLEET_RIGS, 4), bool)
+    mask[1, 2:] = False
+    mask[2] = False
+    masked = count(lambda: vs.process_fleet(fleet, camera_mask=mask),
+                   frame_k, "a masked fleet frame is 3 launches")
+    for r in range(FLEET_RIGS):
+        equal_fields(rig_slice(masked, r),
+                     vs.process_frame(fleet[r], camera_mask=mask[r]),
+                     f"masked fleet rig {r} vs its masked frame")
+    for grp in masked:
+        if bool(grp.valid[2].any()) or bool(grp.valid[1, 1].any()):
+            raise AssertionError("masked fleet: a dead pair is valid")
+    for t in (masked.features_l.xy, masked.depth.depth):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError("masked fleet: non-finite output")
+    log("[fleet] masked (rig 1's back pair and rig 2 dead): 3 launches, "
+        "every rig bit-equal to its masked process_frame, the dead pairs "
+        "invalid and finite")
+
+    u8 = VisualSystem(rig, PipelineConfig(orb=cfg, precision="uint8"),
+                      device="cuda")
+    fleet_u8 = torch.clamp(torch.round(fleet), 0, 255).to(torch.uint8)
+    got = count(lambda: u8.process_fleet(fleet_u8), frame_k,
+                "a uint8 fleet frame is 3 launches", want_u8=frame_k)
+    equal_fields(got, vs.process_fleet(fleet_u8.float()),
+                 "uint8 fleet vs the f32 fleet")
+    log("[fleet] uint8: 3 launches of the uint8 variants, bit-equal to the "
+        "f32 fleet on the same integer-valued frames")
+
+    # localized: two process_fleet steps against a per-rig frame loop
+    loc_pipe = PipelineConfig(orb=cfg, localize=True)
+    loc = VisualSystem(rig, loc_pipe, device="cuda")
+    loop = [VisualSystem(rig, loc_pipe, device="cuda")
+            for _ in range(FLEET_RIGS)]
+    four = {**frame_k, "match_fused": 1}
+    pose_err = 0.0
+    for t in range(2):
+        step = torch.from_numpy(seq8.frames[t]).to(dev)
+        got = count(lambda: loc.process_fleet(step), four,
+                    "a localized fleet frame is 4 launches")
+        for r in range(FLEET_RIGS):
+            want = loop[r].process_frame(step[r])
+            equal_fields(rig_slice(got.stereo, r), want.stereo,
+                         f"localized fleet rig {r}")
+            equal_or_raise(got.points[r], want.points,
+                           f"localized fleet rig {r} points")
+            if int(got.pose.inliers[r]) != int(want.pose.inliers):
+                raise AssertionError(f"localized fleet rig {r}: inliers "
+                                     "differ from its frame's")
+            rot = float((got.pose.rotation[r] - want.pose.rotation).abs()
+                        .max())
+            tr = float((got.pose.translation[r] - want.pose.translation)
+                       .abs().max())
+            if bool(got.pose.valid[r]) != bool(want.pose.valid) or not (
+                    rot <= 1e-5 and tr <= 1e-4):
+                raise AssertionError(f"localized fleet rig {r}: pose off "
+                                     f"the loop's ({rot}, {tr})")
+            pose_err = max(pose_err, rot, tr)
+    if not bool(got.pose.valid.all()):
+        raise AssertionError("localized fleet: a rig has no valid pose")
+    log(f"[fleet localized] 2 steps of {FLEET_RIGS} rigs, 4 launches each; "
+        "points bit-equal to the per-rig loop, poses within "
+        f"{pose_err:.3e}, inliers {got.pose.inliers.tolist()}")
+
+    seq4 = scenes.render_fleet_sequence(scene, SEQ_T, FLEET_LOC_RIGS)
+    frames4 = torch.from_numpy(seq4.frames).to(dev)
+    run = count(lambda: loc.run_fleet(frames4),
+                {**{n: SEQ_T for n in ops.FRAME_KERNELS}, "match_fused": 1},
+                "a localized run_fleet is 3T + 1 launches")
+    fleet_metrics = []
+    for r in range(FLEET_LOC_RIGS):
+        fleet_metrics.append(check_metrics(
+            map_fields(lambda x: x[:, r], run.pose), seq4.poses[r], LOC_LIMITS,
+            f"run_fleet rig {r}"))
+    log(f"[fleet localized] run_fleet T={SEQ_T} x {FLEET_LOC_RIGS} rigs: "
+        f"{3 * SEQ_T + 1} launches, every rig under phase 6's limits")
+
+    # the card against the CPU session, 2 rigs at 96 x 128
+    small = ORBConfig(height=96, width=128, max_features=64,
+                      max_disparity=64)
+    sseq = scenes.render_fleet_sequence(scenes.SceneConfig(
+        height=96, width=128, n_points=300, baseline=0.3), 1, 2)
+    sframes = np.round(sseq.frames[0])
+    spipe = PipelineConfig(orb=small)
+    srig = RigConfig.quad(sseq.intrinsics)
+    cpu = VisualSystem(srig, spipe, device="cpu")
+    card = VisualSystem(srig, spipe, device="cuda")
+    want = cpu.process_fleet(sframes)
+    levels = pyramid.build_pyramid_batched(
+        torch.from_numpy(sframes).reshape(-1, 96, 128), small)
+    own = pyramid.build_pyramid_batched(
+        torch.from_numpy(sframes).reshape(-1, 96, 128).to(dev), small)
+    same_levels = all(torch.equal(a, b.cpu()) for a, b in zip(levels, own))
+    build = pyramid.build_pyramid_batched
+    pyramid.build_pyramid_batched = (
+        lambda images, cfg_, **kw: [l.to(images.device) for l in levels])
+    try:
+        got = card.process_fleet(sframes)
+        torch.cuda.synchronize()
+    finally:
+        pyramid.build_pyramid_batched = build
+    n_edge = hold_fleet_card_vs_cpu(got, want, "fleet card vs CPU")
+    log(f"[fleet small] card == CPU on 2 rigs at 96 x 128 (the card's own "
+        f"levels equal the CPU's: {same_levels}; {n_edge} descriptors "
+        "differ at a bin edge"
+        f"{'; matches not compared' if n_edge else ''})")
+
+    log(f"[fleet] every input of K1-K4 on the counted fleet calls held to "
+        f"its plain version: {held['calls']} inputs, dense FE and matchers "
+        f"bit-equal, sparse FE moments within {held['moment_err']} (the "
+        "float rule), descriptors by the bins")
+
+    # latency at 1, 2, 4 and 8 rigs, in turns; the 8-rig device profile
+    lat = {n: [] for n in FLEET_SIZES}
+    for _ in range(3):
+        for n in FLEET_SIZES:
+            vs.process_fleet(fleet[:n])
+    for _ in range(REPS):
+        for n in FLEET_SIZES:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vs.process_fleet(fleet[:n])
+            torch.cuda.synchronize()
+            lat[n].append((time.perf_counter() - t0) * 1e3)
+    med = {n: statistics.median(v) for n, v in lat.items()}
+    for n in FLEET_SIZES:
+        log(f"[fleet latency] {n} rig(s): median {med[n]:.4f} ms over "
+            f"{REPS} (min {min(lat[n]):.4f}, max {max(lat[n]):.4f}), "
+            f"{med[n] / n:.4f} ms a rig")
+    summary = {}
+    profile_frames(vs, None, call=lambda: vs.process_fleet(fleet),
+                   summary=summary)
+    stats = {"latency_ms": {str(n): med[n] for n in FLEET_SIZES},
+             "ms_per_rig": {str(n): med[n] / n for n in FLEET_SIZES},
+             "profile_8_rigs": summary, "pose_err_vs_loop": pose_err,
+             "held_to_plain": held,
+             "run_fleet_metrics": fleet_metrics}
+    return total, total_u8, stats
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2460,7 +2800,10 @@ def main() -> int:
     u8_counts, u8_stats, u8_latency = uint8_phase(
         frame, intr, vs_loc.rig, seq_frames, seq_poses, cfg, dev)
 
-    # 12. result lines
+    # 12. fleet frames (K1-K4 with the rig axis folded in) at full width
+    fleet_counts, fleet_u8_counts, fleet_stats = fleet_phase(cfg, dev)
+
+    # 13. result lines
     kernels = []
     meta = {
         "frontend_fused_pyramid": (
@@ -2487,6 +2830,7 @@ def main() -> int:
             "bound_by": st["bound_by"], "library_ms": None,
             "ms_integer_frames": results["integer"][i]["ms"],
             "profiled_device_ms": prof[0] if prof else None,
+            "fleet_launches": fleet_counts[name],
         })
     keys = ("ms", "device_ms", "bound_ms", "bound_by")
     kernels[0]["textured"] = {
@@ -2504,7 +2848,8 @@ def main() -> int:
              loop_counts["match_fused"],
              {f"{what}_{k}": got[k] for what, got in (("run", mo_run),
                                                      ("stereo", mo_stereo))
-              for k in ("ms", "device_ms", "plain_ms", "bound_ms")}),
+              for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
+             | {"fleet_launches": fleet_counts["match_fused"]}),
             ("sad_fused", "src/repro_torch/kernels/csrc/sad_fused.cu",
              "src/repro/kernels/matcher_fused.py:275", sad_stats,
              entry_counts["sad_fused"], {}),
@@ -2570,6 +2915,7 @@ def main() -> int:
             "ms": st["ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
             "library_ms": None, "profiled_device_ms": st["device_ms"],
+            "fleet_launches": fleet_u8_counts[name],
             **{k: v for k, v in st.items() if k.startswith("float_")}})
     print(json.dumps({"kernels": kernels,
                       "module_split_ms": module_split,
@@ -2580,6 +2926,7 @@ def main() -> int:
                       "localized_host_syncs": loc["host_syncs"],
                       "per_level_vs_whole_frame": schedules,
                       "uint8_vs_f32_frame": u8_latency,
+                      "fleet": fleet_stats,
                       "empty_launch": floor}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind_name,

@@ -50,21 +50,24 @@ def pipeline_config_from_reference(d: dict) -> PipelineConfig:
     nested ``ORBConfig`` arrives as a dict), precision included.  The JAX
     package's ``impl`` (its kernel-implementation switch) has no
     counterpart here: the tensors' device picks the implementation.  Its
-    ``rig_shard_axis`` (the fleet's device mesh, ROADMAP A5) is not
-    ported: a set one raises."""
+    ``rig_shard_axis`` (sharding a fleet's rigs over a device mesh,
+    ROADMAP A12) is not ported: a set one raises."""
     d = dict(d)
     d.pop("impl", None)
     if d.pop("rig_shard_axis", None) is not None:
         raise NotImplementedError(
-            "rig_shard_axis is not ported yet (ROADMAP A5)")
+            "rig_shard_axis (multi-GPU rig sharding) is not ported yet "
+            "(ROADMAP A12)")
     d["orb"] = orb_config_from_reference(d["orb"])
     return PipelineConfig(**d)
 
 
 def localization_state_from_reference(d: dict) -> LocalizationState:
     """The port's ``LocalizationState`` from a JAX one's fields as numpy
-    (``{k: np.asarray(v) for k, v in state._asdict().items()}``): the
-    uint32 descriptors become the port's int32 bit-views."""
+    (``{k: np.asarray(v) for k, v in state._asdict().items()}``), with
+    any leading axes (a frame's (n_pairs,), a fleet's (n_rigs,
+    n_pairs)): the uint32 descriptors become the port's int32
+    bit-views."""
     def tensor(x, dtype):
         return torch.from_numpy(np.array(x, dtype=dtype))
 

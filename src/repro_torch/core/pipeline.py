@@ -9,18 +9,24 @@ streams frames:
     vs = VisualSystem(RigConfig.quad(intr), PipelineConfig(orb=ocfg))
     out = vs.process_frame(images)     # (n_cameras, H, W) -> (P,) axes
     outs = vs.run(frames)              # (T, n_cameras, H, W) -> (T, P)
+    fout = vs.process_fleet(fleet)     # (n_rigs, n_cameras, H, W) -> (N, P)
+    fseq = vs.run_fleet(fleet_frames)  # (T, n_rigs, n_cameras, H, W)
 
 A frame costs exactly THREE kernel launches: one dense FE and one
 sparse FE launch for every camera at every pyramid level, and one
-fused matcher launch for every stereo pair.  With
-``PipelineConfig(localize=True)`` a frame returns a
+fused matcher launch for every stereo pair.  A fleet frame folds its
+rig axis into the same batch axes (one (n_rigs * n_cameras,) camera
+batch, one (n_rigs * n_pairs,) pair batch), so it too is 3 launches,
+and each rig's slice equals that rig's ``process_frame`` bit for bit.
+With ``PipelineConfig(localize=True)`` a frame returns a
 ``LocalizationOutput`` (rig-frame points and the relative pose since the
-previous frame) for ONE more launch, the match-only temporal matcher; a
-localized ``run`` of T frames folds all T - 1 transitions into that one
-launch (3T + 1 in all).  ``PipelineConfig(precision="uint8")`` runs the
-paper's 8-bit datapath on uint8 frames in the same launches (each
-kernel's uint8 variant), with the same outputs as the float32 path on
-the same integer-valued frame.  PyTorch runs eagerly, so the JAX
+previous frame) for ONE more launch, the match-only temporal matcher,
+which a fleet frame shares across its rigs; a localized ``run`` or
+``run_fleet`` of T steps folds all T - 1 transitions of every rig into
+that one launch (3T + 1 in all).  ``PipelineConfig(precision="uint8")``
+runs the paper's 8-bit datapath on uint8 frames in the same launches
+(each kernel's uint8 variant), with the same outputs as the float32
+path on the same integer-valued frame.  PyTorch runs eagerly, so the JAX
 session's jit cache has no counterpart here, and ``run`` is a Python
 loop over frames where the JAX package scans.
 
@@ -70,19 +76,22 @@ class DesyncDecision(typing.NamedTuple):
 class PipelineConfig:
     """How frames are processed (the rig says WHAT is processed).
 
-    The port runs the sequential schedule.  ``precision`` selects the
-    image datapath: "f32" (default) takes float frames and keeps float32
-    slabs; "uint8" is the paper's 8-bit datapath end to end — uint8
-    frames and pyramid slabs, int32 accumulators, a uint8 blur, int16
-    FAST scores and int32 moments in the kernels' uint8 variants — and
-    needs ``ORBConfig.quantized``.  ``localize`` turns on the
-    localization backend (``repro_torch.localization``):
-    ``process_frame`` and ``run`` then return a ``LocalizationOutput``
-    for one more launch a frame (one in all for ``run``).
+    The port runs the sequential schedule, frames and fleets alike.
+    ``precision`` selects the image datapath: "f32" (default) takes
+    float frames and keeps float32 slabs; "uint8" is the paper's 8-bit
+    datapath end to end — uint8 frames and pyramid slabs, int32
+    accumulators, a uint8 blur, int16 FAST scores and int32 moments in
+    the kernels' uint8 variants — and needs ``ORBConfig.quantized``.
+    ``localize`` turns on the localization backend
+    (``repro_torch.localization``): ``process_frame``, ``process_fleet``,
+    ``run`` and ``run_fleet`` then return a ``LocalizationOutput`` for
+    one more launch a frame or fleet frame (one in all for a
+    sequence).
     ``temporal_radius`` (x) and ``temporal_radius_y`` (y; None = the x
     radius) bound the frame-to-frame search window of ``temporal_match``
-    and the backend.  ``schedule="pipelined"`` (ROADMAP A5) is a later
-    slice and raises ``NotImplementedError``."""
+    and the backend.  ``schedule="pipelined"`` (paper Fig. 4: FE(t)
+    overlapping FM(t - 1)) is not ported yet and raises
+    ``NotImplementedError`` naming ROADMAP A5."""
 
     orb: ORBConfig = ORBConfig()
     schedule: str = "sequential"
@@ -134,23 +143,30 @@ class VisualSystem:
         # Bounded health log: one spread per checked frame.
         self.desync_log: "collections.deque[float]" = collections.deque(
             maxlen=4096)
-        self._li, self._ri = self._flat_pair_indices()
-        self._intr = self._fm_intr()
-        # Localization memory: the previous processed frame's state,
-        # written only when PipelineConfig.localize is on.  Callers that
-        # keep their own state pass ``prev=`` instead.
-        self._loc_state: LocalizationState | None = None
+        # Pair indices and depth scales on the device, per fleet size.
+        self._pair_cache: dict[int, tuple] = {}
+        # Localization memory: the previous processed frame's state per
+        # entry key ("frame" / ("fleet", n_rigs)), written only when
+        # PipelineConfig.localize is on.  Callers that keep their own
+        # state pass ``prev=`` instead.
+        self._loc_state: dict = {}
+        # the session's device must exist: no silent CPU carry-on
+        self._flat_pair_indices(1)
 
     # -- shape / sync validation (eager) -----------------------------------
 
-    def _check_images(self, images, what: str,
-                      sequence: bool = False) -> None:
+    def _check_images(self, images, *, fleet: bool, sequence: bool,
+                      what: str | None = None) -> None:
+        want_nd = 3 + int(fleet) + int(sequence)
         shape = tuple(images.shape)
-        want_nd = 4 if sequence else 3
+        if what is None:
+            what = (("run_fleet" if sequence else "process_fleet") if fleet
+                    else ("run" if sequence else "process_frame"))
         if len(shape) != want_nd:
             raise ValueError(
                 f"{what} expects a rank-{want_nd} array "
-                f"({'T, ' if sequence else ''}n_cameras, H, W); got "
+                f"{'(T, ' if sequence else '('}"
+                f"{'n_rigs, ' if fleet else ''}n_cameras, H, W); got "
                 f"shape {shape}")
         c, h, w = shape[-3:]
         if c != self.rig.n_cameras:
@@ -218,9 +234,9 @@ class VisualSystem:
                 sync_mod.desync_camera_mask(ts, self.rig.max_desync))
         return DesyncDecision(desync, policy)
 
-    def _desync_error(self, desync: float) -> DesyncError:
+    def _desync_error(self, desync: float, what: str = "") -> DesyncError:
         return DesyncError(
-            f"{self.rig.sync_policy}-sync rig saw {desync:.3e}s "
+            f"{what}{self.rig.sync_policy}-sync rig saw {desync:.3e}s "
             f"inter-camera desync (tolerance {self.rig.max_desync:.3e}s)"
             ": time tags must come from the unified trigger clock "
             "(paper Sec. III-A)")
@@ -234,17 +250,22 @@ class VisualSystem:
             raise self._desync_error(decision.desync)
         return decision.desync
 
-    def _coerce_camera_mask(self, camera_mask, what: str):
-        """Validate a caller's (n_cameras,) camera mask; np.bool_."""
+    def _coerce_camera_mask(self, camera_mask, n_rigs: int | None,
+                            what: str):
+        """Validate a caller's camera mask: (n_cameras,) bool for a
+        frame, (n_rigs, n_cameras) for a fleet; returns np.bool_."""
         if camera_mask is None:
             return None
         if isinstance(camera_mask, torch.Tensor):
             camera_mask = camera_mask.cpu().numpy()
         mask = np.asarray(camera_mask, dtype=bool)
-        if mask.shape != (self.rig.n_cameras,):
+        want = ((self.rig.n_cameras,) if n_rigs is None
+                else (n_rigs, self.rig.n_cameras))
+        if mask.shape != want:
             raise ValueError(
                 f"{what}: camera_mask shape {mask.shape} does not match "
-                f"{(self.rig.n_cameras,)} (per-camera liveness)")
+                f"{want} (per-camera liveness"
+                f"{'' if n_rigs is None else ' per rig'})")
         return mask
 
     def _frame_desync_mask(self, timestamps, camera_mask):
@@ -262,59 +283,141 @@ class VisualSystem:
                            else camera_mask & keep)
         return False, camera_mask
 
+    def _fleet_desync_mask(self, timestamps, camera_mask, n_rigs: int):
+        """The desync policy rig by rig over (n_rigs, n_cameras) time
+        tags: ``raise`` names the rig, ``drop_frame`` masks the whole
+        rig (a fleet's shape is static: a rig cannot leave the batch),
+        ``degrade`` ANDs its keep-mask into that rig's row."""
+        ts = np.asarray(timestamps, dtype=np.float64)
+        if ts.shape != (n_rigs, self.rig.n_cameras):
+            raise ValueError(
+                f"process_fleet: timestamps shape {ts.shape} does not "
+                f"match ({n_rigs}, {self.rig.n_cameras})")
+        rows = (np.ones((n_rigs, self.rig.n_cameras), dtype=bool)
+                if camera_mask is None else camera_mask.copy())
+        for r in range(n_rigs):
+            try:
+                dropped, row = self._frame_desync_mask(ts[r], rows[r])
+            except DesyncError:
+                raise self._desync_error(sync_mod.frame_desync(ts[r]),
+                                         what=f"fleet rig {r}: ") from None
+            rows[r] = False if dropped else row
+        return rows
+
+    def _coerce_fleet_images(self, images, what: str):
+        """A fleet arrives as one stacked array or as a sequence of
+        per-rig (n_cameras, H, W) frames.  Stacking needs one shape for
+        every rig: mismatched rigs fail here with their shapes listed."""
+        if isinstance(images, (list, tuple)) or (
+                isinstance(images, np.ndarray) and images.dtype == object):
+            shapes = [tuple(np.shape(x)) for x in images]
+            if len(set(shapes)) > 1:
+                raise ValueError(
+                    f"{what}: rigs have mismatched frame shapes "
+                    f"{shapes}; every rig in one fleet batch must share "
+                    f"the same (n_cameras, H, W) = "
+                    f"({self.rig.n_cameras}, {self.pipe.orb.height}, "
+                    f"{self.pipe.orb.width}).  Rigs with different "
+                    "camera counts need their own session (one "
+                    "RigConfig per layout).")
+            if images and all(isinstance(x, torch.Tensor) for x in images):
+                return torch.stack(list(images))
+            return np.stack([np.asarray(x) for x in images])
+        return images
+
     # -- engine -------------------------------------------------------------
 
-    def _flat_pair_indices(self):
-        """Left/right camera indices of every stereo pair in the camera
-        batch (one rig: folding a fleet into the batch is ROADMAP A5)."""
-        return (torch.as_tensor(self.rig.left_cams, device=self.device),
-                torch.as_tensor(self.rig.right_cams, device=self.device))
+    def _pairs(self, n_rigs: int):
+        """(left indices, right indices, FM intrinsics) of a batch of
+        ``n_rigs`` rigs, built on the device once per fleet size."""
+        if n_rigs not in self._pair_cache:
+            c = self.rig.n_cameras
+            offs = np.arange(n_rigs, dtype=np.int64)[:, None] * c
+            left = offs + np.asarray(self.rig.left_cams, np.int64)[None]
+            right = offs + np.asarray(self.rig.right_cams, np.int64)[None]
+            if self.rig.homogeneous_intrinsics:
+                intr = self.rig.intrinsics[0]
+            else:
+                fxb = np.asarray([float(ic.fx) * float(ic.baseline)
+                                  for ic in self.rig.pair_intrinsics],
+                                 np.float32)
+                intr = torch.as_tensor(np.tile(fxb, n_rigs)[:, None],
+                                       device=self.device)
+            self._pair_cache[n_rigs] = (
+                torch.as_tensor(left.reshape(-1), device=self.device),
+                torch.as_tensor(right.reshape(-1), device=self.device),
+                intr)
+        return self._pair_cache[n_rigs]
 
-    def _fm_intr(self):
-        """The shared ``CameraIntrinsics`` of a homogeneous rig, else a
-        (n_pairs, 1) float32 column of per-pair ``fx * baseline``."""
-        if self.rig.homogeneous_intrinsics:
-            return self.rig.intrinsics[0]
-        fxb = np.asarray([float(ic.fx) * float(ic.baseline)
-                          for ic in self.rig.pair_intrinsics], np.float32)
-        return torch.as_tensor(fxb[:, None], device=self.device)
+    def _flat_pair_indices(self, n_rigs: int):
+        """Left/right camera indices of every pair of every rig in the
+        flat (n_rigs * n_cameras,) camera batch."""
+        li, ri, _ = self._pairs(n_rigs)
+        return li, ri
 
-    def _fe_flat(self, images):
-        """FE stage over the camera batch: ONE dense + ONE sparse launch
-        for every camera at every pyramid level."""
+    def _fm_intr(self, n_rigs: int):
+        """The shared ``CameraIntrinsics`` of a homogeneous rig, else an
+        (n_rigs * n_pairs, 1) float32 column of per-pair
+        ``fx * baseline``, the rig's column tiled across the fleet."""
+        return self._pairs(n_rigs)[2]
+
+    def _fe_flat(self, images, n_rigs: int):
+        """FE stage over the flat camera batch: ONE dense + ONE sparse
+        launch for every camera of every rig at every pyramid level."""
         feats = orb.extract_features_batched(images, self.pipe.orb,
                                              precision=self.pipe.precision)
-        feat_l = map_fields(lambda x: x[self._li], feats)
-        feat_r = map_fields(lambda x: x[self._ri], feats)
-        return images[self._li], images[self._ri], feat_l, feat_r
+        li, ri = self._flat_pair_indices(n_rigs)
+        feat_l = map_fields(lambda x: x[li], feats)
+        feat_r = map_fields(lambda x: x[ri], feats)
+        return images[li], images[ri], feat_l, feat_r
 
-    def _fm_flat(self, carry) -> StereoOutput:
-        """FM stage over the pair batch: ONE fused matcher launch."""
+    def _fm_flat(self, carry, n_rigs: int) -> StereoOutput:
+        """FM stage over the flat pair batch: ONE fused matcher launch
+        for every pair of every rig."""
         imgs_l, imgs_r, feat_l, feat_r = carry
         matches, depth = matching.match_pair_fused(
-            imgs_l, imgs_r, feat_l, feat_r, self.pipe.orb, self._intr)
+            imgs_l, imgs_r, feat_l, feat_r, self.pipe.orb,
+            self._fm_intr(n_rigs))
         return StereoOutput(feat_l, feat_r, matches, depth)
 
-    def _core_flat(self, flat, mask_flat=None) -> StereoOutput:
-        """The 3-launch datapath with optional graceful degradation: a
-        per-camera liveness mask zeroes dead slabs BEFORE the kernels
-        and gates every validity field AFTER them; all-true masks are
-        identity."""
+    def _core_flat(self, flat, n_rigs: int, mask_flat=None) -> StereoOutput:
+        """The 3-launch datapath over the flat (n_rigs * n_cameras,)
+        camera batch, with optional graceful degradation: a per-camera
+        liveness mask zeroes dead slabs BEFORE the kernels and gates
+        every validity field AFTER them; all-true masks are identity."""
         if mask_flat is not None:
             flat = torch.where(mask_flat[:, None, None], flat,
                                torch.zeros_like(flat))
-        out = self._fm_flat(self._fe_flat(flat))
+        out = self._fm_flat(self._fe_flat(flat, n_rigs), n_rigs)
         if mask_flat is not None:
-            ml, mr = mask_flat[self._li], mask_flat[self._ri]
+            li, ri = self._flat_pair_indices(n_rigs)
+            ml, mr = mask_flat[li], mask_flat[ri]
             out = matching.mask_stereo_output(out, ml, mr, ml & mr)
         return out
 
-    def _frame_core(self, images, camera_mask=None) -> StereoOutput:
-        """(n_cameras, H, W) -> StereoOutput with (n_pairs,) axes."""
-        mask = (None if camera_mask is None
+    def _mask_on_device(self, camera_mask):
+        """A validated camera mask as a flat bool tensor on the device."""
+        return (None if camera_mask is None
                 else torch.as_tensor(np.asarray(camera_mask, bool).reshape(-1),
                                      device=self.device))
-        return self._core_flat(images, mask)
+
+    def _frame_core(self, images, camera_mask=None) -> StereoOutput:
+        """(n_cameras, H, W) -> StereoOutput with (n_pairs,) axes: a
+        fleet of one through the same 3-launch datapath."""
+        return self._core_flat(images, 1, self._mask_on_device(camera_mask))
+
+    def _fleet_core(self, images, camera_mask=None) -> StereoOutput:
+        """(n_rigs, n_cameras, H, W) -> StereoOutput with
+        (n_rigs, n_pairs) axes: the rig axis folds into the kernels'
+        camera and pair batch axes, so the fleet frame is 3 launches,
+        degraded or not (``camera_mask``: (n_rigs, n_cameras) bool)."""
+        n = images.shape[0]
+        flat = images.reshape((n * self.rig.n_cameras,)
+                              + tuple(images.shape[2:]))
+        out = self._core_flat(flat, n, self._mask_on_device(camera_mask))
+        return map_fields(
+            lambda x: x.reshape((n, self.rig.n_pairs) + tuple(x.shape[1:])),
+            out)
 
     def _to_device(self, images) -> torch.Tensor:
         """Images on the session's device, as float32, or as uint8 in a
@@ -329,11 +432,12 @@ class VisualSystem:
         the session's device."""
         return map_fields(lambda x: torch.as_tensor(x).to(self.device), tup)
 
-    def _run_core(self, frames) -> StereoOutput:
-        """The sequential schedule: the 3-launch frame path over every
-        frame in order (the JAX package's ``lax.scan``), stacked into
-        (T, n_pairs, ...) outputs."""
-        outs = [self._frame_core(frames[t]) for t in range(frames.shape[0])]
+    def _run_core(self, frames, fleet: bool) -> StereoOutput:
+        """The sequential schedule: the 3-launch frame (or fleet frame)
+        path over every step in order (the JAX package's ``lax.scan``),
+        stacked into (T, [n_rigs,] n_pairs, ...) outputs."""
+        step = self._fleet_core if fleet else self._frame_core
+        outs = [step(frames[t]) for t in range(frames.shape[0])]
         return combine_fields(torch.stack, outs)
 
     # -- localization engine -------------------------------------------------
@@ -357,78 +461,105 @@ class VisualSystem:
             pp.reshape(n_rows, p * k, 3), cp.reshape(n_rows, p * k, 3),
             w.reshape(n_rows, p * k))
 
-    def _localize_frame(self, out: StereoOutput, prev: LocalizationState):
-        """Backend stage of one frame: rig-frame points (no launch), ONE
-        temporal-match launch and the robust solve.  Returns (points
-        (P, K, 3), scalar PoseSet)."""
+    def _localize_fleet(self, out: StereoOutput, prev: LocalizationState):
+        """Backend stage of a fleet frame, (n_rigs, n_pairs, ...) axes:
+        rig-frame points (no launch), ONE temporal-match launch whose
+        batch folds every pair of every rig, and the solve batched over
+        the rigs.  Returns (points (n_rigs, P, K, 3), PoseSet with
+        (n_rigs,) axes)."""
+        n = out.features_l.valid.shape[0]
         pts = localization.rig_points(out.features_l.xy, out.depth.depth,
                                       self.rig)
         curr = localization.state_from(LocalizationOutput(out, pts, None))
-        pose = self._solve(prev, curr, 1)
-        return pts, map_fields(lambda x: x[0], pose)
 
-    def _invalid_pose(self, n: int) -> PoseSet:
+        def flat(state):
+            return map_fields(lambda x: x.reshape((-1,) + x.shape[2:]),
+                              state)
+
+        return pts, self._solve(flat(prev), flat(curr), n)
+
+    def _localize_frame(self, out: StereoOutput, prev: LocalizationState):
+        """Frame view of ``_localize_fleet``: (P,) axes in, points
+        (P, K, 3) and a scalar PoseSet out."""
+        pts, pose = self._localize_fleet(
+            map_fields(lambda x: x[None], out),
+            map_fields(lambda x: x[None], prev))
+        return pts[0], map_fields(lambda x: x[0], pose)
+
+    def _invalid_pose(self, lead: tuple) -> PoseSet:
         return PoseSet(
-            rotation=torch.eye(3, device=self.device).expand(n, 3, 3).clone(),
-            translation=torch.zeros(n, 3, device=self.device),
-            inliers=torch.zeros(n, dtype=torch.int32, device=self.device),
-            valid=torch.zeros(n, dtype=torch.bool, device=self.device))
+            rotation=torch.eye(3, device=self.device).expand(
+                lead + (3, 3)).clone(),
+            translation=torch.zeros(lead + (3,), device=self.device),
+            inliers=torch.zeros(lead, dtype=torch.int32, device=self.device),
+            valid=torch.zeros(lead, dtype=torch.bool, device=self.device))
 
-    def _run_loc(self, frames) -> LocalizationOutput:
-        """Localized sequence: the frontend over every frame (3 launches
+    def _run_loc(self, frames, fleet: bool) -> LocalizationOutput:
+        """Localized sequence: the frontend over every step (3 launches
         each) plus ONE temporal-match launch for ALL T - 1 transitions
-        (time folds into the matcher's batch axis), then the (T - 1)-way
-        batched solve.  Pose row 0 is identity + invalid (no
-        predecessor)."""
-        outs = self._run_core(frames)
-        t_total = frames.shape[0]
-        pts = localization.rig_points(outs.features_l.xy, outs.depth.depth,
-                                      self.rig)            # (T, P, K, 3)
-        pose = self._invalid_pose(1)
+        of every rig (time and rigs fold into the matcher's batch axis),
+        then the (T - 1) * n_rigs-way batched solve.  Pose row 0 is
+        identity + invalid (no predecessor)."""
+        outs = self._run_core(frames, fleet)
+        shaped = outs if fleet else map_fields(lambda x: x[:, None], outs)
+        t_total, n = shaped.features_l.valid.shape[:2]
+        pts = localization.rig_points(shaped.features_l.xy,
+                                      shaped.depth.depth,
+                                      self.rig)          # (T, n, P, K, 3)
+        pose = self._invalid_pose((1, n))
         if t_total > 1:
             state = localization.state_from(
-                LocalizationOutput(outs, pts, None))
+                LocalizationOutput(shaped, pts, None))
 
             def flat(sl):
                 return map_fields(
-                    lambda x: x[sl].reshape((-1,) + x.shape[2:]), state)
+                    lambda x: x[sl].reshape((-1,) + x.shape[3:]), state)
 
             moved = self._solve(flat(slice(None, -1)), flat(slice(1, None)),
-                                t_total - 1)
+                                (t_total - 1) * n)
+            moved = map_fields(
+                lambda x: x.reshape((t_total - 1, n) + x.shape[1:]), moved)
             pose = combine_fields(torch.cat, [pose, moved])
+        if not fleet:
+            pts = pts[:, 0]
+            pose = map_fields(lambda x: x[:, 0], pose)
         return LocalizationOutput(outs, pts, pose)
 
-    def _resolve_prev(self, prev, out: StereoOutput,
+    def _resolve_prev(self, prev, key, out: StereoOutput,
                       what: str) -> LocalizationState:
-        """Previous-frame state for a localized frame: the caller's
+        """Previous-frame state for a localized entry: the caller's
         explicit ``prev`` (validated eagerly), else the session's stored
-        state, else the all-invalid zero state (session start: the solve
-        degenerates to identity + invalid)."""
+        state for this entry key, else the all-invalid zero state
+        (session start: the solve degenerates to identity + invalid)."""
         k = out.features_l.valid.shape[-1]
+        n_rigs = None if key == "frame" else key[1]
         if prev is None:
-            prev = self._loc_state
+            prev = self._loc_state.get(key)
         if prev is None:
-            return localization.zero_state(self.rig.n_pairs, k,
+            return localization.zero_state(self.rig.n_pairs, k, n_rigs,
                                            device=self.device)
         if not isinstance(prev, LocalizationState):
             raise TypeError(
                 f"{what}: prev must be a LocalizationState "
                 f"(see repro_torch.localization.state_from), got "
                 f"{type(prev)!r}")
-        want = (self.rig.n_pairs, k, 3)
+        lead = ((self.rig.n_pairs,) if n_rigs is None
+                else (n_rigs, self.rig.n_pairs))
+        want = lead + (k, 3)
         got = tuple(prev.points.shape)
         if got != want:
             raise ValueError(
                 f"{what}: prev.points shape {got} does not match {want} "
                 "— the state must come from the same rig layout and "
-                "feature budget")
+                "feature budget (and, for fleets, the same n_rigs)")
         return self._on_device(prev)
 
     def reset_localization(self) -> None:
-        """Forget the cross-frame localization state: the next
-        ``process_frame`` behaves like a session start (identity +
-        invalid pose).  Call between unrelated sequences."""
-        self._loc_state = None
+        """Forget all cross-frame localization state: the next
+        ``process_frame`` / ``process_fleet`` behaves like a session
+        start (identity + invalid pose).  Call between unrelated
+        sequences."""
+        self._loc_state.clear()
 
     # -- entry points --------------------------------------------------------
 
@@ -450,8 +581,9 @@ class VisualSystem:
         ``camera_mask`` ((n_cameras,) bool) marks dead cameras: their
         slabs are zeroed before the kernels and every validity field
         they touch is gated off."""
-        self._check_images(images, "process_frame")
-        camera_mask = self._coerce_camera_mask(camera_mask, "process_frame")
+        self._check_images(images, fleet=False, sequence=False)
+        camera_mask = self._coerce_camera_mask(camera_mask, None,
+                                               "process_frame")
         if timestamps is not None:
             dropped, camera_mask = self._frame_desync_mask(timestamps,
                                                            camera_mask)
@@ -460,10 +592,50 @@ class VisualSystem:
         out = self._frame_core(self._to_device(images), camera_mask)
         if not self.pipe.localize:
             return out
-        prev_state = self._resolve_prev(prev, out, "process_frame")
+        prev_state = self._resolve_prev(prev, "frame", out, "process_frame")
         pts, pose = self._localize_frame(out, prev_state)
         lout = LocalizationOutput(out, pts, pose)
-        self._loc_state = localization.state_from(lout)
+        self._loc_state["frame"] = localization.state_from(lout)
+        return lout
+
+    def process_fleet(self, images, timestamps=None, camera_mask=None,
+                      prev: LocalizationState | None = None
+                      ) -> StereoOutput | LocalizationOutput:
+        """One frame from every rig of a fleet: (n_rigs, n_cameras, H, W)
+        -> StereoOutput with leading (n_rigs, n_pairs) axes, in exactly
+        3 kernel launches for the whole fleet; each rig's slice equals
+        that rig's ``process_frame`` bit for bit.  ``images`` may also
+        be a sequence of per-rig (n_cameras, H, W) frames; mismatched
+        per-rig shapes raise ``ValueError``.
+
+        ``timestamps`` ((n_rigs, n_cameras)) applies the desync policy
+        rig by rig: ``raise`` raises naming the rig, ``drop_frame``
+        masks the whole rig, ``degrade`` masks its offending cameras.
+        ``camera_mask`` ((n_rigs, n_cameras) bool) marks dead cameras;
+        masked rigs degrade to their surviving pairs in the same 3
+        launches.
+
+        With ``PipelineConfig.localize`` the return is a
+        ``LocalizationOutput`` with (n_rigs,) pose axes, for ONE more
+        launch for the whole fleet; ``prev`` ((n_rigs, n_pairs, ...)
+        ``LocalizationState``) overrides the session-held state of this
+        fleet size."""
+        images = self._coerce_fleet_images(images, "process_fleet")
+        self._check_images(images, fleet=True, sequence=False)
+        n_rigs = int(images.shape[0])
+        camera_mask = self._coerce_camera_mask(camera_mask, n_rigs,
+                                               "process_fleet")
+        if timestamps is not None:
+            camera_mask = self._fleet_desync_mask(timestamps, camera_mask,
+                                                  n_rigs)
+        out = self._fleet_core(self._to_device(images), camera_mask)
+        if not self.pipe.localize:
+            return out
+        key = ("fleet", n_rigs)
+        prev_state = self._resolve_prev(prev, key, out, "process_fleet")
+        pts, pose = self._localize_fleet(out, prev_state)
+        lout = LocalizationOutput(out, pts, pose)
+        self._loc_state[key] = localization.state_from(lout)
         return lout
 
     def run(self, frames) -> StereoOutput | LocalizationOutput:
@@ -472,18 +644,31 @@ class VisualSystem:
         launches a frame).  With ``localize`` on: a
         ``LocalizationOutput`` whose pose rows are the per-step relative
         motion (row 0 identity + invalid), for one more launch in all;
-        a sequence neither reads nor writes the ``process_frame``
-        cross-call state."""
-        self._check_images(frames, "run", sequence=True)
+        a sequence neither reads nor writes the cross-call state of
+        ``process_frame`` and ``process_fleet``."""
+        self._check_images(frames, fleet=False, sequence=True)
         frames = self._to_device(frames)
         if self.pipe.localize:
-            return self._run_loc(frames)
-        return self._run_core(frames)
+            return self._run_loc(frames, False)
+        return self._run_core(frames, False)
+
+    def run_fleet(self, frames) -> StereoOutput | LocalizationOutput:
+        """A fleet sequence (T, n_rigs, n_cameras, H, W) -> StereoOutput
+        with leading (T, n_rigs, n_pairs) axes, 3 launches a step.  With
+        ``localize`` on: a ``LocalizationOutput`` with (T, n_rigs) pose
+        axes (row 0 identity + invalid) for one more launch in all
+        (3T + 1); like ``run``, it keeps no cross-call state."""
+        self._check_images(frames, fleet=True, sequence=True)
+        frames = self._to_device(frames)
+        if self.pipe.localize:
+            return self._run_loc(frames, True)
+        return self._run_core(frames, True)
 
     def extract(self, images) -> FeatureSet:
         """FE only: (n_cameras, H, W) -> FeatureSet with a leading
         (n_cameras,) axis, in 2 launches."""
-        self._check_images(images, "extract")
+        self._check_images(images, fleet=False, sequence=False,
+                           what="extract")
         return orb.extract_features_batched(self._to_device(images),
                                             self.pipe.orb,
                                             precision=self.pipe.precision)
@@ -561,14 +746,6 @@ class VisualSystem:
         best = table.argmin(dim=1).float() - float(cfg.sad_range)
         return matching._depth_set(xy_l[:, 0], xy_r, best, m, cfg,
                                    self.rig.pair_intrinsics[0])
-
-    def process_fleet(self, *args, **kwargs):
-        raise NotImplementedError(
-            "process_fleet is not ported yet (ROADMAP A5)")
-
-    def run_fleet(self, *args, **kwargs):
-        raise NotImplementedError(
-            "run_fleet is not ported yet (ROADMAP A5)")
 
 
 def session_for(cfg: ORBConfig, intr: CameraIntrinsics | None,

@@ -5,14 +5,19 @@ Two-layer pyramid; 1280x720 -> 1067x600 at the paper's 1.2 scale
 factor.  The resize is jax's ``image.resize(method="bilinear")``, which
 antialiases when it shrinks: a separable triangle filter whose (in,
 out) weight matrices are built here in float32 with jax's own formula
-(``jax/_src/image/scale.py::compute_weight_mat``) and contracted with
-two matrix products.  The products sum in another order than XLA's, so
-a resized value may differ in its last bits and, after the quantizing
-round, a rare level-1 pixel by one grey level; level 0 is the input
-itself and never differs.
+(``jax/_src/image/scale.py::compute_weight_mat``).  Each output sums
+only its band of nonzero weights (3 taps at the 1.2 factor), first tap
+first, one elementwise multiply and add at a time, down the rows and
+then along the columns.  XLA sums the full matrix products in another
+order, so a resized value may differ in its last bits and, after the
+quantizing round, a rare level-1 pixel by one grey level; level 0 is
+the input itself and never differs.
 
-This resize is not one of the Pallas kernels: it stays two
-``torch.matmul`` calls, in full float32 (TF32 must be off).
+Every output is computed alone, in one fixed order, so an image's
+levels do not depend on the batch it comes in (a rig's frame and the
+same rig inside a fleet give the same bits) nor on the device.
+
+This resize is not one of the Pallas kernels: it stays plain PyTorch.
 """
 
 from __future__ import annotations
@@ -52,19 +57,55 @@ def _weight_mat(in_size: int, out_size: int, device: str) -> torch.Tensor:
     return weights.to(device)
 
 
+@functools.lru_cache(maxsize=16)
+def _band(in_size: int, out_size: int, device: str):
+    """Each output's band of ``_weight_mat``: (out_size, taps) input
+    indices (from the first nonzero weight up) and their weights, zero
+    past the band's end, ``taps`` the widest band."""
+    wm = _weight_mat(in_size, out_size, "cpu")        # (in, out)
+    nz = wm != 0
+    first = torch.where(nz.any(0), nz.int().argmax(0), 0)
+    last = in_size - 1 - nz.flip(0).int().argmax(0)
+    taps = max(int((last - first).max()) + 1, 1)
+    rows = first[:, None] + torch.arange(taps)
+    idx = rows.clamp(max=in_size - 1)
+    w = torch.where((rows <= last[:, None]) & nz.any(0)[:, None],
+                    wm.t().gather(1, idx), torch.zeros(()))
+    return idx.to(device), w.to(device)
+
+
+def _resample(x: torch.Tensor, dim: int, out_size: int) -> torch.Tensor:
+    """Resize axis ``dim`` (-2 or -1) of (B, H, W) ``x`` to
+    ``out_size``: gather each output's band, weight it, and add the
+    taps one at a time in index order."""
+    idx, w = _band(x.shape[dim], out_size, str(x.device))
+    taps = idx.shape[1]
+    g = x.index_select(dim, idx.reshape(-1))
+    if dim == -2:
+        p = g.view(x.shape[0], out_size, taps, x.shape[2]) * w[:, :, None]
+        parts = [p[:, :, t] for t in range(taps)]
+    else:
+        p = g.view(x.shape[0], x.shape[1], out_size, taps) * w
+        parts = [p[..., t] for t in range(taps)]
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out
+
+
 def bilinear_resize(images: torch.Tensor, out_hw: tuple[int, int]):
-    """(B, H, W) float32 -> (B, h, w) antialiased bilinear resize."""
+    """(B, H, W) float32 -> (B, h, w) antialiased bilinear resize, each
+    image on its own: the same bits in any batch, on any device."""
     if torch.backends.cuda.matmul.allow_tf32:
+        # The resize takes no matrix product, but every frame starts
+        # here, and the rig points and the pose solve after it need
+        # full float32 products.
         raise RuntimeError(
-            "the pyramid resize needs full float32 matrix products: set "
+            "the pipeline needs full float32 matrix products: set "
             "torch.backends.cuda.matmul.allow_tf32 = False")
-    _, h, w = images.shape
-    dev = str(images.device)
-    wy = _weight_mat(h, out_hw[0], dev)           # (H, h)
-    wx = _weight_mat(w, out_hw[1], dev)           # (W, w)
-    # Contract H first, then W: the order jax's einsum picks (the
+    # Rows first, then columns: the order jax's einsum picks (the
     # cheaper one, since h < w).
-    return torch.matmul(torch.matmul(wy.t(), images), wx)
+    return _resample(_resample(images, -2, out_hw[0]), -1, out_hw[1])
 
 
 def build_pyramid(image: torch.Tensor, cfg: ORBConfig, *,

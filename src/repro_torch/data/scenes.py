@@ -1,5 +1,5 @@
-"""Synthetic quad-camera scene (numpy-only port of the single-frame and
-sequence parts of ``repro.data.scenes``).
+"""Synthetic quad-camera scene (numpy-only port of the single-frame,
+sequence and fleet parts of ``repro.data.scenes``).
 
 A deterministic 3-D landmark field rendered into the four pinhole views
 of the quad rig (two stereo pairs, front and back).  Landmarks render as
@@ -163,3 +163,34 @@ def render_sequence(cfg: SceneConfig, n_frames: int,
         t = (t + r @ dt).astype(f32)
         r = (r @ dr).astype(f32)
     return SequenceOutput(np.stack(frames), poses, intr)
+
+
+class FleetSequenceOutput(typing.NamedTuple):
+    """Fleet traffic with per-rig ground truth: ``poses[r]`` is rig
+    ``r``'s per-frame [(R, t)] trajectory (rigs are phase-offset views
+    of one trajectory; the offset is applied here)."""
+
+    frames: np.ndarray                  # (T, n_rigs, 4, H, W) float32
+    intrinsics: CameraIntrinsics
+    poses: tuple                        # n_rigs x [T x (R, t)]
+
+
+def render_fleet_sequence(cfg: SceneConfig, n_frames: int, n_rigs: int,
+                          step_t: tuple[float, float, float] =
+                          (0.05, 0.0, 0.10),
+                          yaw_per_frame: float = 0.01
+                          ) -> FleetSequenceOutput:
+    """Deterministic fleet traffic: (T, n_rigs, 4, H, W) quad frames.
+    Every rig drives the same landmark field on the same twist, rig r
+    seeing frames r .. r + n_frames - 1 of one rendered sequence, so
+    rigs see distinct images while only n_frames + n_rigs - 1 quad
+    frames are rendered."""
+    if n_rigs < 1:
+        raise ValueError(f"n_rigs must be >= 1, got {n_rigs}")
+    frames, poses, intr = render_sequence(cfg, n_frames + n_rigs - 1,
+                                          step_t=step_t,
+                                          yaw_per_frame=yaw_per_frame)
+    fleet = np.stack([frames[r:r + n_frames] for r in range(n_rigs)],
+                     axis=1)
+    rig_poses = tuple(poses[r:r + n_frames] for r in range(n_rigs))
+    return FleetSequenceOutput(fleet, intr, rig_poses)

@@ -12,8 +12,9 @@
                 float64.
 
 ``VisualSystem`` (with ``PipelineConfig(localize=True)``) wires these
-into ``process_frame`` and ``run``: a localized frame costs 3 frontend
-launches + 1 temporal-match launch.  The helpers below convert between
+into ``process_frame``, ``process_fleet``, ``run`` and ``run_fleet``: a
+localized frame, or fleet frame, costs 3 frontend launches + 1
+temporal-match launch.  The helpers below convert between
 outputs and the cross-frame ``LocalizationState``.
 """
 
@@ -49,13 +50,17 @@ def state_from(out: LocalizationOutput) -> LocalizationState:
         valid=feat_l.valid & out.stereo.depth.valid)
 
 
-def zero_state(n_pairs: int, k: int,
+def zero_state(n_pairs: int, k: int, n_rigs: int | None = None,
                device: str | torch.device = "cpu") -> LocalizationState:
-    """An all-invalid previous-frame state (session start): zeros with
-    ``valid=False`` everywhere, so the first temporal solve degenerates
-    to identity + ``valid=False`` through the same code as any frame."""
+    """An all-invalid previous-frame state (session start, or a rig
+    never seen before): zeros with ``valid=False`` everywhere, with
+    leading (n_pairs,) axes, or (n_rigs, n_pairs) for a fleet, so the
+    first temporal solve degenerates to identity + ``valid=False``
+    through the same code as any frame."""
+    lead = (n_pairs,) if n_rigs is None else (n_rigs, n_pairs)
+
     def zeros(*tail, dtype=torch.float32):
-        return torch.zeros((n_pairs, k) + tail, dtype=dtype, device=device)
+        return torch.zeros(lead + (k,) + tail, dtype=dtype, device=device)
 
     return LocalizationState(desc=zeros(8, dtype=torch.int32), meta=zeros(4),
                              points=zeros(3), valid=zeros(dtype=torch.bool))

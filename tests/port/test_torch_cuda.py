@@ -17,14 +17,16 @@ per-level sparse FE bit-equal to the whole-frame sparse FE, and the
 per-level dense FE to the whole-frame one (shared device code), so the
 per-level schedule equals the whole-frame one; a localized frame's pose
 within the CPU tests' pose tolerance (the SVD runs in another library on
-the card).  The uint8 variants (K1-K3, K5-K8) are held to their plain
-versions by the same rules, and bit-equal to the float kernels on the
-same integer-valued input, theta included (the same ``atan2f`` on the
-same exact moments).  On adversarial frames (plateaus, ties, signed
-zeros, values one ulp about centre +- threshold, large and subnormal
-magnitudes, uint8 0 and 255) and shapes about the 62 x 62 dense tile,
-the dense kernels are bit-equal as float32 bit patterns, so signed
-zeros count."""
+the card); a fleet frame's rig slices bit-equal to the rigs' frames in 3
+launches (4 localized, with poses within 1e-5 / 1e-4 of the per-rig
+loop's: one batched SVD against one a rig).  The uint8 variants (K1-K3,
+K5-K8) are held to their plain versions by the same rules, and
+bit-equal to the float kernels on the same integer-valued input, theta
+included (the same ``atan2f`` on the same exact moments).  On
+adversarial frames (plateaus, ties, signed zeros, values one ulp about
+centre +- threshold, large and subnormal magnitudes, uint8 0 and 255)
+and shapes about the 62 x 62 dense tile, the dense kernels are
+bit-equal as float32 bit patterns, so signed zeros count."""
 
 import numpy as np
 import pytest
@@ -674,3 +676,68 @@ def test_u8_process_frame_is_three_u8_launches_and_equals_f32(cuda):
         for x, y in zip(grp_got, grp_want):
             assert torch.equal(x, y)
     assert min(got.depth.valid.sum(-1).tolist()) > 0
+
+
+def _fleet_frames(n_rigs):
+    seq = scenes.render_fleet_sequence(scenes.SceneConfig(
+        height=96, width=128, n_points=300, baseline=0.3), 1, n_rigs)
+    return np.round(seq.frames), seq.intrinsics
+
+
+@pytest.mark.parametrize("n_rigs", [1, 2, 5])
+def test_process_fleet_is_three_launches_and_equals_frames(cuda, n_rigs):
+    """The rig axis folds into K1-K3's batch axes: one launch of each
+    for the whole fleet, masked or not, and each rig's slice bit-equal
+    to that rig's ``process_frame`` on the card."""
+    frames, intr = _fleet_frames(n_rigs)
+    cfg = ORBConfig(height=96, width=128, max_features=64, max_disparity=64)
+    vs = VisualSystem(RigConfig.quad(intr), PipelineConfig(orb=cfg))
+    mask = np.ones((n_rigs, 4), bool)
+    mask[-1, 2:] = False
+    for cm in (None, mask):
+        before = {n: k.launches for n, k in ops.KERNELS.items()}
+        with ops.launch_audit() as audit:
+            out = vs.process_fleet(frames[0], camera_mask=cm)
+            torch.cuda.synchronize()
+        assert audit.count == 3
+        assert all(ops.KERNELS[n].launches == before[n] + 1
+                   for n in ops.FRAME_KERNELS)
+        for r in range(n_rigs):
+            want = vs.process_frame(frames[0, r],
+                                    camera_mask=None if cm is None
+                                    else cm[r])
+            for grp_got, grp_want in zip(out, want):
+                for x, y in zip(grp_got, grp_want):
+                    assert torch.equal(x[r], y)
+    assert not out.matches.valid[-1, 1].any()
+
+
+def test_localized_fleet_is_four_launches_and_equals_frames(cuda):
+    seq = scenes.render_fleet_sequence(scenes.SceneConfig(
+        height=96, width=128, baseline=0.5, seed=1), 2, 3,
+        step_t=(0.25, 0.0, 0.1), yaw_per_frame=0.0)
+    frames = np.round(seq.frames)
+    cfg = ORBConfig(height=96, width=128, max_features=96,
+                    fast_threshold=15)
+    pipe = PipelineConfig(orb=cfg, localize=True)
+    rig = RigConfig.quad(seq.intrinsics)
+    fleet = VisualSystem(rig, pipe)
+    loop = [VisualSystem(rig, pipe) for _ in range(3)]
+    for t in range(2):
+        with ops.launch_audit() as audit:
+            got = fleet.process_fleet(frames[t])
+            torch.cuda.synchronize()
+        assert audit.count == 4
+        for r in range(3):
+            want = loop[r].process_frame(frames[t, r])
+            assert torch.equal(got.points[r], want.points)
+            assert bool(got.pose.valid[r]) == bool(want.pose.valid) == (t > 0)
+            assert torch.allclose(got.pose.rotation[r], want.pose.rotation,
+                                  rtol=0, atol=1e-5)
+            assert torch.allclose(got.pose.translation[r],
+                                  want.pose.translation, rtol=0, atol=1e-4)
+    with ops.launch_audit() as audit:
+        run = fleet.run_fleet(frames)
+        torch.cuda.synchronize()
+    assert audit.count == 3 * 2 + 1
+    assert run.pose.valid.tolist() == [[False] * 3, [True] * 3]

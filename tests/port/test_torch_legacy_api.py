@@ -184,7 +184,7 @@ def test_shim_warns_and_delegates_to_the_session(name):
 def test_run_sequence_pipelined_warns_then_raises_not_implemented():
     frames, intr, *_ = _inputs()
     with pytest.warns(DeprecationWarning, match=PORT_WARNING), \
-            pytest.raises(NotImplementedError, match="A5"):
+            pytest.raises(NotImplementedError, match="ROADMAP A5"):
         frontend.run_sequence_pipelined(frames, ORBConfig(**CFG), intr,
                                         device="cpu")
 

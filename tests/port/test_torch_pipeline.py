@@ -1,8 +1,9 @@
 """The port's slice as a whole: ``VisualSystem.process_frame`` and the
 stage chain against the JAX package's session (``impl="ref"``), plus
 the session's camera-mask, desync-policy, validation and not-yet-ported
-contracts.  All on the CPU, where every kernel runs its plain version,
-at 96x128 with 64 features over two levels."""
+contracts (the fleet entry points are ``test_torch_fleet.py``'s).  All
+on the CPU, where every kernel runs its plain version, at 96x128 with
+64 features over two levels."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -204,15 +205,20 @@ def test_eager_shape_and_dtype_errors_match_jax(jax_session, images, err):
 
 
 def test_later_slices_raise_not_implemented():
-    """The pipelined schedule and the fleet entry points (ROADMAP A5)
-    raise; ``precision="uint8"`` (A6, ported) constructs, and its frame
-    equals the f32 session's on the same integer-valued frame."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The pipelined schedule (ROADMAP A5) raises; the fleet entry
+    points (ported since) run, and a fleet of one equals the frame on
+    both entries; ``precision="uint8"`` (A6, ported) constructs, and its
+    frame equals the f32 session's on the same integer-valued frame."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         PipelineConfig(schedule="pipelined")
     vs = _port_session()
-    for entry in (vs.process_fleet, vs.run_fleet):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            entry(np.zeros((1, 4, H, W), np.float32))
+    frame = _frame(True)
+    one = vs.process_frame(frame)
+    fleet = vs.process_fleet(frame[None])
+    seq = vs.run_fleet(frame[None, None])
+    for grp_one, grp_fleet, grp_seq in zip(one, fleet, seq):
+        for x, y, z in zip(grp_one, grp_fleet, grp_seq):
+            assert torch.equal(x, y[0]) and torch.equal(x, z[0, 0])
     with pytest.raises(ValueError):
         PipelineConfig(precision="f16")
     u8 = VisualSystem(vs.rig, PipelineConfig(orb=ORBConfig(**OCFG),

@@ -46,6 +46,23 @@ def test_levels_share_one_flat_buffer():
     assert levels[1].storage_offset() == levels[0].numel()
 
 
+@pytest.mark.parametrize("hw", [(96, 128), (720, 1280), (59, 85)])
+def test_resize_is_the_weight_matrix_product(hw):
+    """The banded sum is jax's filter: the products with the same
+    (float32) weight matrices, taken in float64, within the rounding of
+    two passes of 3 products and 2 adds of values in [0, 255] whose
+    nonnegative weights sum to 1 (2.5 float32 ulp of 255 a pass)."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy((rng.random((2, *hw)) * 255).astype(np.float32))
+    out_hw = ORBConfig(height=hw[0], width=hw[1]).level_shape(1)
+    got = pyramid.bilinear_resize(x, out_hw).double()
+    wy = pyramid._weight_mat(hw[0], out_hw[0], "cpu").double()
+    wx = pyramid._weight_mat(hw[1], out_hw[1], "cpu").double()
+    want = wy.t() @ x.double() @ wx
+    ulp = float(np.spacing(np.float32(255.0)))
+    assert float((got - want).abs().max()) <= 5 * ulp
+
+
 def test_resize_refuses_tf32():
     old = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
