@@ -1,7 +1,8 @@
 """Core library of the port: the session layer (``VisualSystem``) over
 the FE engine (``orb``), the FM engine (``matching``: the fused
-matcher and the unfused oracle schedule), the pyramid, top-K selection
-and the rigid alignment of the pose solve (``backend``); the
+matcher and the unfused oracle schedule), the pyramid, top-K selection,
+the stereo VO backend (``backend``: triangulation, Kabsch, Gauss-Newton
+refinement, the robust relative pose and trajectory integration); the
 single-image FE API (``extract_features``, and the paper's FE modules
 ``pyramid.build_pyramid``, ``fast.detect`` / ``fast.orientations``,
 ``brief.smooth`` / ``brief.describe``); and the legacy free functions
@@ -25,7 +26,7 @@ from repro_torch.core.frontend import (extract_pair, match_pair,
                                        pipeline_schedule, process_quad_frame,
                                        process_stereo_frame, run_sequence,
                                        run_sequence_pipelined)
-from repro_torch.core import brief, fast, pyramid, sync  # noqa: F401
+from repro_torch.core import backend, brief, fast, pyramid, sync  # noqa: F401
 
 __all__ = [
     "CameraIntrinsics", "DepthSet", "FeatureSet", "LocalizationOutput",
@@ -36,6 +37,6 @@ __all__ = [
     "sad_rectify", "sad_rectify_unfused", "match_pair_fused",
     "match_pair_unfused", "temporal_match", "extract_pair", "match_pair",
     "process_stereo_frame", "process_quad_frame", "run_sequence",
-    "run_sequence_pipelined", "pipeline_schedule", "brief", "fast",
-    "pyramid", "sync",
+    "run_sequence_pipelined", "pipeline_schedule", "backend", "brief",
+    "fast", "pyramid", "sync",
 ]

@@ -90,8 +90,9 @@ def run_sequence(frames, cfg: ORBConfig, intr: CameraIntrinsics,
 def run_sequence_pipelined(frames, cfg: ORBConfig, intr: CameraIntrinsics,
                            device="cuda") -> StereoOutput:
     """DEPRECATED shim for ``VisualSystem.run`` under the "pipelined"
-    schedule (Fig. 4: FE(t) overlaps FM(t-1)), which is not ported yet:
-    its ``PipelineConfig`` raises ``NotImplementedError`` (ROADMAP A5)."""
+    schedule (Fig. 4: FE(t) overlaps FM(t-1), on two CUDA streams of a
+    card session): frames (T, 4, H, W) -> StereoOutput with (T, 2) axes,
+    equal to ``run_sequence``'s."""
     _deprecated("core.frontend.run_sequence_pipelined", "run")
     return _session(cfg, intr, device, 4, schedule="pipelined").run(frames)
 

@@ -52,9 +52,12 @@ def _fx_baseline(intr, like: torch.Tensor) -> torch.Tensor:
     """Disparity -> depth scale as a float32 tensor on ``like``'s
     device: the shared ``CameraIntrinsics`` product (a Python float, as
     the JAX package computes it) or a per-pair ``fx * baseline``
-    column for heterogeneous rigs."""
+    column for heterogeneous rigs.  The product is filled in on the
+    device: a scalar copied from the host would make the host wait for
+    the stream on every frame."""
     if isinstance(intr, CameraIntrinsics):
-        intr = float(intr.fx) * float(intr.baseline)
+        return torch.full((), float(intr.fx) * float(intr.baseline),
+                          dtype=torch.float32, device=like.device)
     return torch.as_tensor(intr, dtype=torch.float32, device=like.device)
 
 

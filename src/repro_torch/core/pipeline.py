@@ -28,7 +28,10 @@ runs the paper's 8-bit datapath on uint8 frames in the same launches
 (each kernel's uint8 variant), with the same outputs as the float32
 path on the same integer-valued frame.  PyTorch runs eagerly, so the JAX
 session's jit cache has no counterpart here, and ``run`` is a Python
-loop over frames where the JAX package scans.
+loop over frames where the JAX package scans.  Under
+``PipelineConfig(schedule="pipelined")`` ``run`` and ``run_fleet``
+overlap FE(t) with FM(t - 1) (paper Fig. 4) on two CUDA streams, with
+the same outputs and launches.
 
 The session runs on ``device`` ("cuda" unless the caller asks for the
 CPU); on the CPU every kernel runs its plain PyTorch version.  There
@@ -76,8 +79,13 @@ class DesyncDecision(typing.NamedTuple):
 class PipelineConfig:
     """How frames are processed (the rig says WHAT is processed).
 
-    The port runs the sequential schedule, frames and fleets alike.
-    ``precision`` selects the image datapath: "f32" (default) takes
+    ``schedule`` picks how ``run`` and ``run_fleet`` order a sequence's
+    stages: "sequential" runs each frame's FE and FM in turn;
+    "pipelined" is the paper's Fig. 4 frame multiplexing, FE(t)
+    overlapping FM(t - 1), with FE and FM on two CUDA streams of the
+    session's card (in one thread, in the same order, on the CPU).  The
+    two give the same outputs bit for bit, at any ``precision`` and with
+    ``localize`` on or off.  ``precision`` selects the image datapath: "f32" (default) takes
     float frames and keeps float32 slabs; "uint8" is the paper's 8-bit
     datapath end to end — uint8 frames and pyramid slabs, int32
     accumulators, a uint8 blur, int16 FAST scores and int32 moments in
@@ -89,9 +97,7 @@ class PipelineConfig:
     sequence).
     ``temporal_radius`` (x) and ``temporal_radius_y`` (y; None = the x
     radius) bound the frame-to-frame search window of ``temporal_match``
-    and the backend.  ``schedule="pipelined"`` (paper Fig. 4: FE(t)
-    overlapping FM(t - 1)) is not ported yet and raises
-    ``NotImplementedError`` naming ROADMAP A5."""
+    and the backend."""
 
     orb: ORBConfig = ORBConfig()
     schedule: str = "sequential"
@@ -115,9 +121,6 @@ class PipelineConfig:
                 "the integer datapath IS the quantized fixed-point "
                 "pipeline held in uint8 slabs (a float Gaussian is not "
                 "representable in a uint8 level)")
-        if self.schedule == "pipelined":
-            raise NotImplementedError(
-                "schedule='pipelined' is not ported yet (ROADMAP A5)")
 
 
 class VisualSystem:
@@ -150,6 +153,9 @@ class VisualSystem:
         # PipelineConfig.localize is on.  Callers that keep their own
         # state pass ``prev=`` instead.
         self._loc_state: dict = {}
+        # The pipelined schedule's FE and FM side streams on a CUDA
+        # device, made at its first use.
+        self._streams: tuple | None = None
         # the session's device must exist: no silent CPU carry-on
         self._flat_pair_indices(1)
 
@@ -380,19 +386,32 @@ class VisualSystem:
             self._fm_intr(n_rigs))
         return StereoOutput(feat_l, feat_r, matches, depth)
 
-    def _core_flat(self, flat, n_rigs: int, mask_flat=None) -> StereoOutput:
-        """The 3-launch datapath over the flat (n_rigs * n_cameras,)
-        camera batch, with optional graceful degradation: a per-camera
-        liveness mask zeroes dead slabs BEFORE the kernels and gates
-        every validity field AFTER them; all-true masks are identity."""
+    def _fe(self, images, n_rigs: int, mask_flat=None):
+        """FE stage of a frame (n_cameras, H, W) or a fleet frame
+        (n_rigs, n_cameras, H, W): the rig axis folds into the kernels'
+        flat camera batch.  With graceful degradation a per-camera
+        liveness mask zeroes dead slabs BEFORE the kernels."""
+        flat = images.reshape((n_rigs * self.rig.n_cameras,)
+                              + tuple(images.shape[-2:]))
         if mask_flat is not None:
             flat = torch.where(mask_flat[:, None, None], flat,
                                torch.zeros_like(flat))
-        out = self._fm_flat(self._fe_flat(flat, n_rigs), n_rigs)
+        return self._fe_flat(flat, n_rigs)
+
+    def _fm(self, carry, n_rigs: int, fleet: bool,
+            mask_flat=None) -> StereoOutput:
+        """FM stage of ``_fe``'s carry: the mask gates every validity
+        field AFTER the kernels (all-true masks are identity), and a
+        fleet's outputs unfold into (n_rigs, n_pairs, ...)."""
+        out = self._fm_flat(carry, n_rigs)
         if mask_flat is not None:
             li, ri = self._flat_pair_indices(n_rigs)
             ml, mr = mask_flat[li], mask_flat[ri]
             out = matching.mask_stereo_output(out, ml, mr, ml & mr)
+        if fleet:
+            out = map_fields(
+                lambda x: x.reshape((n_rigs, self.rig.n_pairs)
+                                    + tuple(x.shape[1:])), out)
         return out
 
     def _mask_on_device(self, camera_mask):
@@ -404,7 +423,8 @@ class VisualSystem:
     def _frame_core(self, images, camera_mask=None) -> StereoOutput:
         """(n_cameras, H, W) -> StereoOutput with (n_pairs,) axes: a
         fleet of one through the same 3-launch datapath."""
-        return self._core_flat(images, 1, self._mask_on_device(camera_mask))
+        mask = self._mask_on_device(camera_mask)
+        return self._fm(self._fe(images, 1, mask), 1, False, mask)
 
     def _fleet_core(self, images, camera_mask=None) -> StereoOutput:
         """(n_rigs, n_cameras, H, W) -> StereoOutput with
@@ -412,12 +432,8 @@ class VisualSystem:
         camera and pair batch axes, so the fleet frame is 3 launches,
         degraded or not (``camera_mask``: (n_rigs, n_cameras) bool)."""
         n = images.shape[0]
-        flat = images.reshape((n * self.rig.n_cameras,)
-                              + tuple(images.shape[2:]))
-        out = self._core_flat(flat, n, self._mask_on_device(camera_mask))
-        return map_fields(
-            lambda x: x.reshape((n, self.rig.n_pairs) + tuple(x.shape[1:])),
-            out)
+        mask = self._mask_on_device(camera_mask)
+        return self._fm(self._fe(images, n, mask), n, True, mask)
 
     def _to_device(self, images) -> torch.Tensor:
         """Images on the session's device, as float32, or as uint8 in a
@@ -433,12 +449,88 @@ class VisualSystem:
         return map_fields(lambda x: torch.as_tensor(x).to(self.device), tup)
 
     def _run_core(self, frames, fleet: bool) -> StereoOutput:
-        """The sequential schedule: the 3-launch frame (or fleet frame)
-        path over every step in order (the JAX package's ``lax.scan``),
-        stacked into (T, [n_rigs,] n_pairs, ...) outputs."""
-        step = self._fleet_core if fleet else self._frame_core
-        outs = [step(frames[t]) for t in range(frames.shape[0])]
+        """A sequence on the session's schedule, stacked into
+        (T, [n_rigs,] n_pairs, ...) outputs.  The sequential schedule is
+        the 3-launch frame (or fleet frame) path over every step in
+        order (the JAX package's ``lax.scan``)."""
+        n = int(frames.shape[1]) if fleet else 1
+
+        def fe(frame):
+            return self._fe(frame, n)
+
+        def fm(carry):
+            return self._fm(carry, n, fleet)
+
+        if self.pipe.schedule == "pipelined":
+            return self._run_pipelined(frames, fe, fm)
+        outs = [fm(fe(frames[t])) for t in range(frames.shape[0])]
         return combine_fields(torch.stack, outs)
+
+    def _side_streams(self):
+        """The session's (FE, FM) side streams on its card, made at the
+        first pipelined call; (None, None) on the CPU, where
+        ``torch.cuda.stream(None)`` leaves the work in this thread."""
+        if self.device.type != "cuda":
+            return None, None
+        if self._streams is None:
+            self._streams = (torch.cuda.Stream(self.device),
+                             torch.cuda.Stream(self.device))
+        return self._streams
+
+    def _run_pipelined(self, frames, fe, fm) -> StereoOutput:
+        """Fig. 4 schedule (JAX ``_run_pipelined``): the prologue is
+        FE(0), step t runs FM(t - 1) and then FE(t), and the drain is
+        FM(T - 1), so the outputs cover all T frames aligned to
+        ``frames``; T == 1 is prologue + drain.  The stages are the
+        sequential schedule's on the same tensors, so the outputs equal
+        its bit for bit, in the same 3T launches.
+
+        On a CUDA session FE(t) runs on the FE side stream and overlaps
+        FM(t - 1) on the FM side stream; on the CPU the same loop runs
+        in one thread.  Every read across streams is ordered by
+        ``wait_stream``, and every tensor made on one stream and read on
+        another is marked with ``record_stream``, so that the caching
+        allocator cannot hand its block to new work of its own stream
+        while the other still reads it.  The prologue FE(0) runs on the
+        current stream ``cur``: it builds the device tensors the path
+        caches (pair indices, resize bands, slab tables, level columns)
+        from cur's pool before either side stream reads them; the caches
+        hold more entries than one call uses, so none is evicted and
+        freed while a side stream reads it.  The outputs are made on the
+        FM stream and marked for ``cur``, which waits for both side
+        streams before returning."""
+        t_total = int(frames.shape[0])
+        fe_s, fm_s = self._side_streams()
+        on_card = fe_s is not None
+        cur = torch.cuda.current_stream(self.device) if on_card else None
+        carry = fe(frames[0])
+        made_on = cur
+        if on_card:
+            fe_s.wait_stream(cur)
+            frames.record_stream(fe_s)
+        steps = []
+        for t in range(1, t_total + 1):
+            if on_card:
+                fm_s.wait_stream(made_on)
+                _record_stream(carry, fm_s)
+            with torch.cuda.stream(fm_s):
+                steps.append(fm(carry))
+            if t < t_total:
+                with torch.cuda.stream(fe_s):
+                    carry = fe(frames[t])
+                made_on = fe_s
+        with torch.cuda.stream(fm_s):
+            outs = combine_fields(torch.stack, steps)
+        if on_card:
+            cur.wait_stream(fm_s)
+            cur.wait_stream(fe_s)
+            _record_stream(outs, cur)
+        if outs.matches.valid.shape[0] != t_total:
+            raise RuntimeError(
+                f"pipelined schedule produced {outs.matches.valid.shape[0]}"
+                f" outputs for {t_total} frames: the prologue/drain "
+                "accounting is broken")
+        return outs
 
     # -- localization engine -------------------------------------------------
 
@@ -640,8 +732,8 @@ class VisualSystem:
 
     def run(self, frames) -> StereoOutput | LocalizationOutput:
         """A frame sequence (T, n_cameras, H, W) -> StereoOutput with
-        leading (T, n_pairs) axes, on the sequential schedule (3
-        launches a frame).  With ``localize`` on: a
+        leading (T, n_pairs) axes, on the session's schedule (3
+        launches a frame on either).  With ``localize`` on: a
         ``LocalizationOutput`` whose pose rows are the per-step relative
         motion (row 0 identity + invalid), for one more launch in all;
         a sequence neither reads nor writes the cross-call state of
@@ -746,6 +838,15 @@ class VisualSystem:
         best = table.argmin(dim=1).float() - float(cfg.sad_range)
         return matching._depth_set(xy_l[:, 0], xy_r, best, m, cfg,
                                    self.rig.pair_intrinsics[0])
+
+
+def _record_stream(tup, stream) -> None:
+    """``record_stream(stream)`` on every tensor of a (nested) tuple."""
+    for x in tup:
+        if isinstance(x, tuple):
+            _record_stream(x, stream)
+        else:
+            x.record_stream(stream)
 
 
 def session_for(cfg: ORBConfig, intr: CameraIntrinsics | None,

@@ -57,7 +57,9 @@ def _weight_mat(in_size: int, out_size: int, device: str) -> torch.Tensor:
     return weights.to(device)
 
 
-@functools.lru_cache(maxsize=16)
+# A call uses 2 (n_levels - 1) entries; the pipelined schedule reads them
+# on a side stream, so one call must never evict its own (pipeline.py).
+@functools.lru_cache(maxsize=64)
 def _band(in_size: int, out_size: int, device: str):
     """Each output's band of ``_weight_mat``: (out_size, taps) input
     indices (from the first nonzero weight up) and their weights, zero

@@ -16,6 +16,19 @@ Tolerances, and why:
   within the theta difference of a bin edge (4 ulp on integer frames,
   the moment bound carried through atan2 on float frames); descriptors
   are equal wherever the bins agree.
+* the stereo VO backend (``core.backend``) against the JAX package's on
+  the same seeded numpy inputs: ``triangulate`` and ``_masked_median``
+  bit-equal (the same elementwise float32 operations; a sort).
+  ``reprojection_residuals`` within ``RESIDUAL_RTOL`` of the projected
+  pixel coordinates' magnitude: the (K, 3) x (3, 3) product rounds
+  differently in XLA's and torch's CPU dots (XLA's own eager and jitted
+  dots differ by an ulp), and a residual subtracts two coordinates of
+  ~1e2 pixels, so its error is an ulp of the coordinate, not of the
+  residual.  ``_so3_exp`` within ``SO3_ATOL``.  ``gauss_newton_refine``
+  and ``estimate_relative_pose``: R and t within ``VO_POSE_ATOL`` and
+  inlier counts equal (float32 forward-mode iterations and median gates
+  on products that round as above).  ``integrate_trajectory`` within
+  ``TRAJECTORY_ATOL`` (a chain of 3 x 3 products).
 """
 
 from __future__ import annotations
@@ -28,6 +41,10 @@ import torch
 U = 2.0 ** -24
 GAMMA_961 = 961 * U / (1 - 961 * U)
 INV_ANGLE_STEP = float(np.float32(12 / (2 * np.pi)))
+RESIDUAL_RTOL = 1e-6
+SO3_ATOL = 1e-6
+VO_POSE_ATOL = 1e-4
+TRAJECTORY_ATOL = 1e-6
 
 
 def np_of(x) -> np.ndarray:

@@ -741,3 +741,130 @@ def test_localized_fleet_is_four_launches_and_equals_frames(cuda):
         torch.cuda.synchronize()
     assert audit.count == 3 * 2 + 1
     assert run.pose.valid.tolist() == [[False] * 3, [True] * 3]
+
+
+# -- the pipelined schedule and the pose backend ----------------------------------
+
+def _tensors(tup):
+    out = []
+    for x in tup:
+        out += _tensors(x) if isinstance(x, tuple) else [x]
+    return out
+
+
+def _assert_same(got, want):
+    for x, y in zip(_tensors(got), _tensors(want)):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+@pytest.mark.parametrize("n_rigs,t", [(None, 3), (4, 2)],
+                         ids=["quad-720p-T3", "fleet-4-rigs-720p-T2"])
+def test_pipelined_equals_sequential_at_720p(cuda, n_rigs, t):
+    """FE on one stream and FM on another, yet every field bit-equal to
+    the sequential schedule, in the same 3T launches (3T + 1
+    localized)."""
+    scene = scenes.SceneConfig(height=720, width=1280, n_points=1600)
+    if n_rigs is None:
+        seq = scenes.render_sequence(scene, t)
+        frames, entry = torch.from_numpy(seq.frames).to(cuda), "run"
+    else:
+        seq = scenes.render_fleet_sequence(scene, t, n_rigs)
+        frames, entry = torch.from_numpy(seq.frames).to(cuda), "run_fleet"
+    for localize in (False, True):
+        vs = [VisualSystem(RigConfig.quad(seq.intrinsics),
+                           PipelineConfig(schedule=s, localize=localize))
+              for s in ("sequential", "pipelined")]
+        want = getattr(vs[0], entry)(frames)
+        with ops.launch_audit() as audit:
+            got = getattr(vs[1], entry)(frames)
+            torch.cuda.synchronize()
+        assert audit.count == 3 * t + localize
+        if localize:
+            _assert_same(got.stereo, want.stereo)
+            assert torch.equal(got.points, want.points)
+            assert torch.equal(got.pose.inliers, want.pose.inliers)
+            assert torch.equal(got.pose.valid, want.pose.valid)
+            for a, b in ((got.pose.rotation, want.pose.rotation),
+                         (got.pose.translation, want.pose.translation)):
+                assert torch.allclose(a, b, rtol=0, atol=1e-5)
+        else:
+            _assert_same(got, want)
+
+
+def test_pipelined_fe_and_fm_run_on_two_streams(cuda):
+    """In a profiler trace of a pipelined ``run``, the dense and sparse
+    FE kernels (K1, K2) and the fused matcher (K3) run on distinct
+    streams."""
+    import json
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+    frames, intr = _fleet_frames(1)
+    cfg = ORBConfig(height=96, width=128, max_features=64, max_disparity=64)
+    vs = VisualSystem(RigConfig.quad(intr),
+                      PipelineConfig(orb=cfg, schedule="pipelined"))
+    seq = torch.from_numpy(np.concatenate([frames[:, 0]] * 3)).to(cuda)
+    vs.run(seq)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        vs.run(seq)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    streams = {sym: {ev["args"]["stream"] for ev in events
+                     if ev.get("cat") == "kernel" and sym in ev["name"]}
+               for sym in ("frontend_kernel", "describe_kernel",
+                           "match_kernel")}
+    fe_streams = streams["frontend_kernel"] | streams["describe_kernel"]
+    assert fe_streams and streams["match_kernel"]
+    assert not fe_streams & streams["match_kernel"]
+    assert vs._streams is not None
+
+
+@pytest.mark.parametrize("refine,iters", [(True, 3), (False, 1), (True, 6)],
+                         ids=["slam", "vio", "registration"])
+def test_backend_on_the_card_matches_the_cpu(cuda, refine, iters):
+    """``estimate_relative_pose`` on the card against the CPU on the same
+    points with gross outliers: R and t within 1e-4 and the inliers
+    equal (the tests' VO tolerance); ``triangulate`` bit-equal."""
+    from repro_torch.core import backend
+    from repro_torch.core.types import (CameraIntrinsics, DepthSet,
+                                        FeatureSet)
+    rng = np.random.RandomState(5)
+    k = 200
+    intr = CameraIntrinsics(fx=300.0, fy=300.0, cx=160.0, cy=120.0)
+    pts = np.stack([rng.uniform(-1, 1, k), rng.uniform(-1, 1, k),
+                    rng.uniform(3, 8, k)], 1).astype(np.float32)
+    ang = 0.03
+    rot = np.asarray([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
+                      [-np.sin(ang), 0, np.cos(ang)]], np.float32)
+    cur = (pts @ rot.T + np.asarray([0.1, 0.0, -0.05], np.float32)).astype(
+        np.float32)
+    xy = np.stack([300 * cur[:, 0] / cur[:, 2] + 160,
+                   300 * cur[:, 1] / cur[:, 2] + 120], 1).astype(np.float32)
+    cur[:20] += rng.uniform(2, 4, (20, 3)).astype(np.float32)
+    w = (rng.rand(k) > 0.1).astype(np.float32)
+    args = [torch.from_numpy(x) for x in (pts, cur, w, xy)]
+    want = backend.estimate_relative_pose(*args, intr, refine=refine,
+                                          robust_iters=iters)
+    got = backend.estimate_relative_pose(*(a.to(cuda) for a in args), intr,
+                                         refine=refine, robust_iters=iters)
+    assert int(got.inliers) == int(want.inliers)
+    for a, b in ((got.rotation, want.rotation),
+                 (got.translation, want.translation)):
+        assert torch.allclose(a.cpu(), b, rtol=0, atol=1e-4)
+    z = torch.from_numpy(pts[:, 2].copy())
+    feats = FeatureSet(torch.from_numpy(xy), torch.zeros(k, dtype=torch.int32),
+                       z, z, torch.zeros(k, 8, dtype=torch.int32),
+                       torch.ones(k, dtype=torch.bool))
+    depth = DepthSet(z, z, torch.from_numpy(xy),
+                     torch.ones(k, dtype=torch.bool))
+    on_card = backend.triangulate(
+        map_fields(lambda x: x.to(cuda), feats),
+        map_fields(lambda x: x.to(cuda), depth), intr)
+    assert torch.equal(on_card.cpu(), backend.triangulate(feats, depth, intr))

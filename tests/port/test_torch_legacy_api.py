@@ -181,12 +181,21 @@ def test_shim_warns_and_delegates_to_the_session(name):
     _assert_equal(got, _np_tree(_session_calls()[name](), np_of), name)
 
 
-def test_run_sequence_pipelined_warns_then_raises_not_implemented():
+def test_run_sequence_pipelined_warns_and_equals_run_sequence():
+    """The pipelined shim warns, runs the "pipelined" session of
+    ``session_for`` and equals the sequential shim bit for bit."""
     frames, intr, *_ = _inputs()
-    with pytest.warns(DeprecationWarning, match=PORT_WARNING), \
-            pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        frontend.run_sequence_pipelined(frames, ORBConfig(**CFG), intr,
-                                        device="cpu")
+    cfg = ORBConfig(**CFG)
+    with pytest.warns(DeprecationWarning, match=PORT_WARNING):
+        got = frontend.run_sequence_pipelined(frames, cfg, intr,
+                                              device="cpu")
+    with pytest.warns(DeprecationWarning, match=PORT_WARNING):
+        want = frontend.run_sequence(frames, cfg, intr, device="cpu")
+    assert pipeline.session_for(cfg, intr, 4, "pipelined",
+                                "cpu").pipe.schedule == "pipelined"
+    assert got.matches.valid.shape[0] == frames.shape[0]
+    _assert_equal(got, _np_tree(want, np_of),
+                  "pipelined shim vs run_sequence")
 
 
 def _features_parity(want, got):

@@ -1,6 +1,6 @@
 """The port's slice as a whole: ``VisualSystem.process_frame`` and the
 stage chain against the JAX package's session (``impl="ref"``), plus
-the session's camera-mask, desync-policy, validation and not-yet-ported
+the session's camera-mask, desync-policy, validation and later-slice
 contracts (the fleet entry points are ``test_torch_fleet.py``'s).  All
 on the CPU, where every kernel runs its plain version, at 96x128 with
 64 features over two levels."""
@@ -204,15 +204,24 @@ def test_eager_shape_and_dtype_errors_match_jax(jax_session, images, err):
                                       camera_mask=np.ones(3, bool))
 
 
-def test_later_slices_raise_not_implemented():
-    """The pipelined schedule (ROADMAP A5) raises; the fleet entry
-    points (ported since) run, and a fleet of one equals the frame on
-    both entries; ``precision="uint8"`` (A6, ported) constructs, and its
-    frame equals the f32 session's on the same integer-valued frame."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        PipelineConfig(schedule="pipelined")
+def test_later_slices_run_and_equal_their_reference():
+    """The later slices, ported since, run.  The pipelined schedule
+    (A5) constructs, and its ``run`` and ``run_fleet`` equal the
+    sequential schedule's bit for bit; the fleet entry points run, and a
+    fleet of one equals the frame on both entries; ``precision="uint8"``
+    (A6) constructs, and its frame equals the f32 session's on the same
+    integer-valued frame."""
     vs = _port_session()
     frame = _frame(True)
+    piped = VisualSystem(vs.rig, PipelineConfig(orb=ORBConfig(**OCFG),
+                                                schedule="pipelined"),
+                         device="cpu")
+    seq = np.stack([frame, np.roll(frame, 2, axis=-1)])
+    for entry, xs in (("run", seq), ("run_fleet", seq[:, None])):
+        got, want = getattr(piped, entry)(xs), getattr(vs, entry)(xs)
+        for grp_got, grp_want in zip(got, want):
+            for x, y in zip(grp_got, grp_want):
+                assert x.dtype == y.dtype and torch.equal(x, y)
     one = vs.process_frame(frame)
     fleet = vs.process_fleet(frame[None])
     seq = vs.run_fleet(frame[None, None])

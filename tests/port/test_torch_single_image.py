@@ -260,12 +260,13 @@ def _u8_input():
     return img.to(torch.uint8), img, cfg, xy
 
 
-def _raises_cases():
+def _later_cases():
     """Each case: the later slice it belonged to, in brackets, and a
-    call.  The A5 calls raise; the A6 ones (the uint8 datapath, ported
-    since) return (the uint8 call's outputs, the float32 call's on the
-    same integer-valued image)."""
-    cfg16 = ORBConfig(height=16, width=16)
+    call, which returns (the later slice's outputs, its reference's).
+    A6 (the uint8 datapath): the uint8 call's against the float32
+    call's on the same integer-valued image; A5 (the pipelined
+    schedule): the legacy pipelined shim's against the sequential
+    one's."""
     u8, f32, cfg, xy = _u8_input()
 
     def both(fn):
@@ -292,7 +293,7 @@ def _raises_cases():
         "uint8 extract_features (A6)": lambda: (
             extract_features(u8, cfg, precision="uint8"),
             extract_features(f32, cfg)),
-        "run_sequence_pipelined (A5)": lambda: _pipelined(cfg16),
+        "run_sequence_pipelined (A5)": lambda: _pipelined(cfg, f32),
     }
 
 
@@ -303,25 +304,29 @@ U8_DTYPES = {
 }
 
 
-def _pipelined(cfg):
-    with pytest.warns(DeprecationWarning, match=r"^repro_torch\."):
-        frontend.run_sequence_pipelined(torch.zeros(1, 4, 16, 16), cfg,
-                                        CameraIntrinsics(), device="cpu")
+def _pipelined(cfg, img):
+    """Every ``StereoOutput`` field of the legacy pipelined shim and of
+    the sequential one on a T = 2 quad sequence of ``img`` shifted."""
+    frames = torch.stack([torch.stack([torch.roll(img, t + c, -1)
+                                       for c in range(4)])
+                          for t in range(2)])
+    outs = []
+    for shim in (frontend.run_sequence_pipelined, frontend.run_sequence):
+        with pytest.warns(DeprecationWarning, match=r"^repro_torch\."):
+            out = shim(frames, cfg, CameraIntrinsics(), device="cpu")
+        outs.append([x for grp in out for x in grp])
+    return outs
 
 
-@pytest.mark.parametrize("case", list(_raises_cases()))
-def test_later_slices_raise_not_implemented(case):
-    """A5's cases raise ``NotImplementedError`` naming the roadmap item.
-    A6's, ported since, run: the uint8 call equals the float32 call on
-    the same integer-valued image, value for value, in the uint8
-    datapath's dtypes (uint8 levels and blur, int16 score) and in
-    float32 for theta, moments and every FeatureSet field."""
-    item = case[case.rindex("(") + 1:-1]
-    if item == "A5":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            _raises_cases()[case]()
-        return
-    got, want = _raises_cases()[case]()
+@pytest.mark.parametrize("case", list(_later_cases()))
+def test_later_slices_equal_their_reference(case):
+    """The later slices' calls run and equal their reference call value
+    for value.  A6: the uint8 call equals the float32 call on the same
+    integer-valued image, in the uint8 datapath's dtypes (uint8 levels
+    and blur, int16 score) and in float32 for theta, moments and every
+    FeatureSet field.  A5: the pipelined shim equals the sequential
+    shim, dtypes too."""
+    got, want = _later_cases()[case]()
     assert len(got) == len(want) > 0
     dtypes = U8_DTYPES.get(case, [w.dtype for w in want])
     for g, w, dt in zip(got, want, dtypes):
