@@ -191,15 +191,34 @@ failure (the script then exits non-zero and prints no result):
       54.8 / 86.7 / 84.6%, the backend's host syncs; the card's backend
       against the CPU's on the same points at ``tests/test_system.py``'s
       160 x 240 (points bit-equal, poses within 1e-4, inliers equal);
-  15. print the kernels' JSON line (the uint8 variants as rows
+  15. the fleet service at full width (``service_phase``): a
+      ``FleetService`` over card sessions serving 8 rigs of
+      ``render_fleet_sequence`` (T = 6, ``QueueConfig()`` buckets 1, 2,
+      4, 8) through ``run_episode``, every step counted (3 launches a
+      served batch, 4 localized, none otherwise) and every K1-K4 input
+      held to its plain version: a fault-free f32 episode bit-equal to
+      ``process_fleet`` on each batch and to ``process_frame``; a fault
+      episode (dead camera, corrupt frame, desync, a stall healed by a
+      restart, arrival jitter, each on its own rig) whose healthy rigs
+      equal the fault-free ones and whose events, counters and status
+      equal a CPU session's at 96 x 128; the same in a uint8 session,
+      equal to f32 on the rounded frames, and a uint8 intake with no
+      copy; the localized episode (finite poses) and the quarantine
+      drive (the quarantined rig's pose state dropped); ``wire_encode``
+      on the card byte-identical to the CPU encoding.  Then tick, step
+      and bare ``process_fleet`` ms in turns, submit ms (f32, uint8),
+      batch upload ms, a tick's idle share, encode/decode ms and
+      ``wire_bytes`` against the tensors' bytes;
+  16. print the kernels' JSON line (the uint8 variants as rows
       ``<kernel>_u8``, each with its float kernel's ``float_*`` numbers
       from the same inputs; the sparse FE's and fused matcher's rows with
       their ``textured`` and ``crowded`` runs; K1-K4 and their uint8
       variants with their launches on phase 12's path under
-      ``fleet_launches``, on phase 13's under ``pipelined_launches`` and
-      on phase 14's under ``vo_launches``; the fleet's timings under
-      ``fleet``, the pipelined schedule's under ``pipelined``, the
-      Tab. I split under ``tab1``; the empty launch under
+      ``fleet_launches``, on phase 13's under ``pipelined_launches``, on
+      phase 14's under ``vo_launches`` and on phase 15's under
+      ``service_launches``; the fleet's timings under ``fleet``, the
+      pipelined schedule's under ``pipelined``, the Tab. I split under
+      ``tab1``, the service's under ``service``; the empty launch under
       ``empty_launch``), then ``{"ok": true, "device": ...}`` as the
       last line.
 
@@ -3150,6 +3169,512 @@ def backend_phase(cfg, dev, seq_frames, seq_poses, intr):
 
 
 
+SERVICE_RIGS, SERVICE_T = 8, 6
+SERVICE_DT = 1.0 / 30.0
+SERVICE_SETTLE = 4
+# The fault episode: each kind on its own rig of 8 (rigs 0, 6 and 7 stay
+# healthy); the watchdog as in ``tests/test_serving_faults.py``.
+SERVICE_SPECS = (dict(kind="dead_camera", rig=1, camera=3),
+                 dict(kind="corrupt_frame", rig=2, start=1, stop=3, camera=0),
+                 dict(kind="desync", rig=3, camera=1, magnitude=0.5),
+                 dict(kind="stalled_rig", rig=4, start=1),
+                 dict(kind="arrival_jitter", rig=5,
+                      magnitude=0.3 * SERVICE_DT))
+SERVICE_HEALTHY = (0, 6, 7)
+SERVICE_SUP = dict(heartbeat_timeout_s=2.5 * SERVICE_DT,
+                   backoff_base_s=SERVICE_DT, backoff_max_s=4 * SERVICE_DT,
+                   restart_budget=2, flap_window_s=1.0, seed=0)
+
+
+def tensor_bytes(tup) -> int:
+    """Bytes of every tensor of a (nested) output tuple."""
+    return sum(x.numel() * x.element_size() for x in tensors_of(tup))
+
+
+def wire_equal(a, b, what: str) -> None:
+    """Two wire dicts: the same keys, ints and shapes; tensors of one
+    dtype with the same bytes (``a``'s on the card)."""
+    if isinstance(b, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"{what}: keys differ")
+        for key in b:
+            wire_equal(a[key], b[key], f"{what}.{key}")
+    elif isinstance(b, torch.Tensor):
+        if a.dtype != b.dtype or a.device.type != "cuda" or \
+                a.cpu().numpy().tobytes() != b.numpy().tobytes():
+            raise AssertionError(f"{what}: card payload differs from the "
+                                 "CPU encoding")
+    elif a != b:
+        raise AssertionError(f"{what}: {a} != {b}")
+
+
+def check_wire(outputs, what: str) -> dict:
+    """``wire_encode`` of each output on the card, byte-identical to
+    ``wire_encode`` of the same output moved to the CPU; the lossless
+    fields round-trip bit-exactly and the quantized ones within scale / 2
+    plus the product's rounding (an ulp of max|x|).  Returns the count
+    and the largest quantization error over its bound."""
+    from repro_torch.core.types import LocalizationOutput, map_fields
+    from repro_torch.serving import wire_decode, wire_encode
+    worst = 0.0
+    for i, out in enumerate(outputs):
+        wire = wire_encode(out)
+        wire_equal(wire, wire_encode(map_fields(lambda x: x.cpu(), out)),
+                   f"{what} report {i}")
+        back = wire_decode(wire)
+        loc = isinstance(out, LocalizationOutput)
+        st, src = (back.stereo, out.stereo) if loc else (back, out)
+        for side in ("features_l", "features_r"):
+            g, s = getattr(st, side), getattr(src, side)
+            for name in ("level", "desc", "valid"):
+                equal_or_raise(getattr(g, name), getattr(s, name),
+                               f"{what} wire {side}.{name}")
+            for name in ("xy", "score", "theta"):
+                x = getattr(s, name)
+                bound = (float(wire[side][f"{name}_scale"]) / 2
+                         + float(x.abs().max()) * 2.0 ** -23)
+                err = float((getattr(g, name) - x).abs().max())
+                if not err <= bound:
+                    raise AssertionError(f"{what} wire {side}.{name}: "
+                                         f"{err} over {bound}")
+                worst = max(worst, err / bound)
+        equal_fields(st.matches, src.matches, f"{what} wire matches")
+        equal_or_raise(st.depth.valid, src.depth.valid,
+                       f"{what} wire depth.valid")
+        if loc:
+            equal_or_raise(back.points, out.points, f"{what} wire points")
+            equal_fields(back.pose, out.pose, f"{what} wire pose")
+    return {"outputs": len(outputs), "worst_err_over_bound": worst}
+
+
+def service_phase(cfg, dev):
+    """The fleet service at full width (phase 15): ``FleetService`` over
+    a card session, ``QueueConfig()`` (buckets 1, 2, 4, 8), 8 rigs of
+    ``render_fleet_sequence`` of phase 4's scene, T = 6, through
+    ``run_episode`` on a virtual clock (dt 1/30 s).  Every service step
+    runs with the counts set to 0 just before and read just after: 3
+    launches (K1-K3; K4 too when localized) for a step that serves a
+    batch, none for one that does not, and every input K1-K4 received is
+    held to its plain version.
+
+    1. A fault-free f32 episode: every report bit-equal to its rig's
+       slice of ``process_fleet`` on the same batch and to its
+       ``process_frame``; ``frames_in == frames_out``, no drop.
+    2. The fault episode (``SERVICE_SPECS``: a dead camera, a corrupt
+       frame, desync, a stall healed by the restart hook and arrival
+       jitter, each on its own rig): it never raises; the healthy rigs'
+       full-mask frames bit-equal to episode 1's; its events, counters
+       and ``status()`` equal to the same episode on a CPU session at
+       96 x 128 (they depend only on the specs and the clock).
+    3. That fault episode in a uint8 session, its reports bit-equal to
+       the f32 session's on the frames rounded to integers (the injector
+       hands float frames, which the intake rounds); then a fault-free
+       uint8 episode on uint8 frames, whose intake queues the caller's
+       arrays without a copy.  Both in the uint8 variants' 3 launches.
+    4. The fault episode localized: 4 launches a batch, every pose
+       finite; then ``tests/test_serving_faults.py``'s quarantine drive
+       (rig 1 silent while the others stream): its pose state dropped,
+       the others' kept.
+    5. ``wire_encode`` of every report of episodes 1 and 4 on the card,
+       byte-identical to the CPU encoding of the same output, lossless
+       fields bit-exact, quantized ones within their bound.
+
+    Then, each beside the card: a service tick (8 submits and a step)
+    and the step alone against bare ``process_fleet`` on the same frames
+    (on the card, and from host frames), median of 20 in turns; submit
+    ms a rig frame, f32 against uint8; the batch upload ms (``next_batch``
+    and the copy alone); the idle share of a tick (``profile_frames``);
+    encode and decode ms; ``wire_bytes`` of a 720p quad ``StereoOutput``
+    and ``LocalizationOutput`` beside the bytes of their tensors.
+    Returns (launches of each kernel on the counted steps, those of each
+    uint8 variant, stats)."""
+    from repro_torch import serving
+    from repro_torch.core import (ORBConfig, PipelineConfig, RigConfig,
+                                  VisualSystem)
+    from repro_torch.data import scenes
+    from repro_torch.distributed import compression
+    from repro_torch.kernels import describe_fused as de
+    from repro_torch.kernels import frontend_fused as fe
+    from repro_torch.kernels import match_fused as mo
+    from repro_torch.kernels import matcher_fused as mf
+    from repro_torch.kernels import ops
+
+    scene = scenes.SceneConfig(height=cfg.height, width=cfg.width,
+                               n_points=1600, seed=0)
+    seq = scenes.render_fleet_sequence(scene, SERVICE_T, SERVICE_RIGS)
+    frames = seq.frames
+    rounded = np.round(frames)
+    rig = RigConfig.quad(seq.intrinsics, desync_policy="degrade",
+                         max_desync=1e-3)
+    sessions = {mode: VisualSystem(rig, PipelineConfig(orb=cfg, **pipe),
+                                   device="cuda")
+                for mode, pipe in (("f32", {}),
+                                   ("uint8", {"precision": "uint8"}),
+                                   ("localized", {"localize": True}))}
+    total = dict.fromkeys(ops.KERNELS, 0)
+    total_u8 = dict.fromkeys(ops.KERNELS, 0)
+    held = {"calls": 0, "moment_err": 0.0}
+
+    def service(mode, restart=None, **sup):
+        return serving.FleetService(
+            sessions[mode], serving.QueueConfig(),
+            serving.SupervisorConfig(**{**SERVICE_SUP, **sup}), restart)
+
+    def counting(svc, what):
+        """Wrap ``svc.step``: the launches of each step, checked, and its
+        batches recorded ([batch])."""
+        step, next_batch = svc.step, svc.queue.next_batch
+        loc = svc.vs.pipe.localize
+        u8 = svc.vs.pipe.precision == "uint8"
+        want = {**{n: 1 for n in ops.FRAME_KERNELS},
+                **({"match_fused": 1} if loc else {})}
+        svc.batches = []
+
+        def record(now, force=False):
+            batch = next_batch(now, force=force)
+            if batch is not None:
+                svc.batches.append(batch)
+            return batch
+
+        def counted_step(now, force=False):
+            served = svc.counters["batches"]
+            with recorded(fe, "frontend_fused_pyramid") as r1, \
+                    recorded(de, "describe_fused_pyramid") as r2, \
+                    recorded(mf, "match_rectify_fused") as r3, \
+                    recorded(mo) as r4:
+                reset_counts()
+                with ops.launch_audit() as audit:
+                    reports = step(now, force=force)
+                    torch.cuda.synchronize()
+                counts = read_counts()
+            got = {n: c for n, c in counts.items() if c}
+            expect = want if svc.counters["batches"] > served else {}
+            if got != expect or audit.count != sum(expect.values()):
+                raise AssertionError(f"{what}: a step launched {got} (audit "
+                                     f"{audit.count}), expected {expect}")
+            u8_got = {n: c for n, c in read_u8_counts().items() if c}
+            if u8_got != (expect if u8 else {}):
+                raise AssertionError(f"{what}: uint8 variant launches "
+                                     f"{u8_got}")
+            for n, c in counts.items():
+                total[n] += c
+            for n, c in u8_got.items():
+                total_u8[n] += c
+            calls = dict(zip(LOC_KERNELS, (r1, r2, r3, r4)))
+            held["moment_err"] = max(held["moment_err"],
+                                     hold_path_calls(calls, what))
+            held["calls"] += sum(len(r) for r in calls.values())
+            return reports
+
+        svc.queue.next_batch = record
+        svc.step = counted_step
+        return svc
+
+    def episode(mode, source, specs=(), restart=False, what="",
+                settle=SERVICE_SETTLE):
+        inj = serving.FaultInjector(
+            [serving.FaultSpec(**s) for s in specs], seed=9) \
+            if specs else None
+        svc = counting(service(mode, inj.clear_rig if restart else None),
+                       what)
+        res = serving.run_episode(svc, source, dt=SERVICE_DT, injector=inj,
+                                  settle_steps=settle)
+        torch.cuda.synchronize()
+        n = svc.counters["batches"]
+        log(f"[service {what}] {len(res.reports)} reports in {n} batches "
+            f"({3 + svc.vs.pipe.localize} launches each), "
+            f"{len(res.events)} events, counters "
+            f"{dict(sorted(res.status['counters'].items()))}")
+        if n < 1:
+            raise AssertionError(f"{what}: no batch served")
+        return res, svc
+
+    def by_key(res, rigs):
+        return {(r.rig_id, round(r.t_arrival, 9)): r for r in res.reports
+                if r.rig_id in rigs and r.output is not None
+                and r.camera_mask.all()}
+
+    def same_as_batches(svc, res, what):
+        """Each report bit-equal to its rig's slice of ``process_fleet``
+        on the same batch, and to that rig's ``process_frame``."""
+        reps = {(r.rig_id, r.t_arrival): r for r in res.reports}
+        n = 0
+        for batch in svc.batches:
+            fleet = svc.vs.process_fleet(batch.images,
+                                         camera_mask=batch.camera_mask)
+            for b, rid in enumerate(batch.rig_ids):
+                got = reps[(rid, batch.t_arrivals[b])].output
+                equal_fields(got, rig_slice(fleet, b),
+                             f"{what} rig {rid} vs process_fleet")
+                equal_fields(got, svc.vs.process_frame(
+                    batch.images[b], camera_mask=batch.camera_mask[b]),
+                    f"{what} rig {rid} vs process_frame")
+                n += 1
+        if n != len(res.reports):
+            raise AssertionError(f"{what}: {n} batch rows for "
+                                 f"{len(res.reports)} reports")
+        return n
+
+    # 1. fault-free f32
+    clean, clean_svc = episode("f32", frames, what="fault-free f32")
+    c = clean.status["counters"]
+    if c["frames_in"] != c["frames_out"] or c["frames_in"] != \
+            SERVICE_RIGS * SERVICE_T or c["dropped_overflow"] or any(
+            k.startswith("dropped") and v for k, v in c.items()):
+        raise AssertionError(f"fault-free episode lost frames: {c}")
+    if {r.status for r in clean.reports} != {"ok"}:
+        raise AssertionError("fault-free episode: a report is not ok")
+    n_same = same_as_batches(clean_svc, clean, "fault-free f32")
+    log(f"[service fault-free f32] {n_same} reports bit-equal to their rig's "
+        "slice of process_fleet on the same batch and to process_frame")
+
+    # 2. the fault episode, f32, and the same episode on a CPU session
+    faulty, faulty_svc = episode("f32", frames, SERVICE_SPECS, True,
+                                 "faults f32")
+    want, got = by_key(clean, SERVICE_HEALTHY), by_key(faulty,
+                                                       SERVICE_HEALTHY)
+    common = set(want) & set(got)
+    if not common:
+        raise AssertionError("fault episode: no healthy frame to compare")
+    for key in common:
+        equal_fields(got[key].output, want[key].output,
+                     f"healthy rig {key[0]} fault vs fault-free")
+    same_as_batches(faulty_svc, faulty, "faults f32")
+    kinds = {(e.rig_id, e.kind) for e in faulty.events}
+    if not {(4, "timeout"), (4, "restart")} <= kinds:
+        raise AssertionError(f"fault episode: no restart of rig 4: {kinds}")
+    small = ORBConfig(height=96, width=128, max_features=64,
+                      max_disparity=64)
+    sseq = scenes.render_fleet_sequence(scenes.SceneConfig(
+        height=96, width=128, n_points=300, baseline=0.3), SERVICE_T,
+        SERVICE_RIGS)
+    cinj = serving.FaultInjector([serving.FaultSpec(**s)
+                                  for s in SERVICE_SPECS], seed=9)
+    cpu_svc = serving.FleetService(
+        VisualSystem(RigConfig.quad(sseq.intrinsics, desync_policy="degrade",
+                                    max_desync=1e-3),
+                     PipelineConfig(orb=small), device="cpu"),
+        serving.QueueConfig(), serving.SupervisorConfig(**SERVICE_SUP),
+        cinj.clear_rig)
+    cpu = serving.run_episode(cpu_svc, sseq.frames, dt=SERVICE_DT,
+                              injector=cinj, settle_steps=SERVICE_SETTLE)
+    events = [(e.kind, e.rig_id, e.now, e.at, e.attempt)
+              for e in faulty.events]
+    if events != [(e.kind, e.rig_id, e.now, e.at, e.attempt)
+                  for e in cpu.events]:
+        raise AssertionError("fault episode: the card's events differ from "
+                             "the CPU session's")
+    if faulty.status != cpu.status:
+        raise AssertionError("fault episode: the card's status differs from "
+                             "the CPU session's")
+    meta = [[(r.rig_id, r.t, r.t_arrival, r.status, r.camera_mask.tolist(),
+              r.late) for r in res.reports] for res in (faulty, cpu)]
+    if meta[0] != meta[1]:
+        raise AssertionError("fault episode: report metadata differ from "
+                             "the CPU session's")
+    log(f"[service faults f32] never raised; {len(common)} healthy full-mask "
+        f"frames bit-equal to the fault-free episode; {len(events)} events "
+        f"{[(k, r) for k, r, *_ in events]}, counters and status equal to "
+        "the CPU session's at 96 x 128")
+
+    # 3. uint8: the fault episode against f32 on the rounded frames, and
+    #    the zero-copy intake of uint8 frames
+    f32r, _ = episode("f32", rounded, SERVICE_SPECS, True, "faults f32 rounded")
+    u8, _ = episode("uint8", frames, SERVICE_SPECS, True, "faults uint8")
+    if [(r.rig_id, r.t_arrival, r.status) for r in u8.reports] != \
+            [(r.rig_id, r.t_arrival, r.status) for r in f32r.reports]:
+        raise AssertionError("uint8 fault episode: reports differ from f32's")
+    for a, b in zip(u8.reports, f32r.reports):
+        equal_fields(a.output, b.output, f"uint8 rig {a.rig_id} vs f32")
+    frames_u8 = np.clip(rounded, 0, 255).astype(np.uint8)
+    zsvc = counting(service("uint8"), "fault-free uint8")
+    put, copies = zsvc.queue.put, []
+
+    def zero_copy_put(rig_id, images, t_arrival, camera_mask=None):
+        copies.append(not np.shares_memory(images, frames_u8))
+        put(rig_id, images, t_arrival, camera_mask=camera_mask)
+
+    zsvc.queue.put = zero_copy_put
+    zres = serving.run_episode(zsvc, frames_u8, dt=SERVICE_DT,
+                               settle_steps=SERVICE_SETTLE)
+    if not copies or any(copies):
+        raise AssertionError(f"uint8 intake copied {sum(copies)} of "
+                             f"{len(copies)} frames")
+    log(f"[service uint8] fault episode: {len(u8.reports)} reports bit-equal "
+        "to the f32 session's on the rounded frames; fault-free on uint8 "
+        f"frames: {len(copies)} intakes, none copied, "
+        f"{len(zres.reports)} reports")
+
+    # 4. localized: the fault episode, then the quarantine drive
+    loc, _ = episode("localized", frames, SERVICE_SPECS, True,
+                     "faults localized")
+    for r in loc.reports:
+        for t in (r.output.pose.rotation, r.output.pose.translation,
+                  r.output.points):
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"localized rig {r.rig_id}: non-finite "
+                                     "pose or points")
+    n_valid = sum(bool(r.output.pose.valid) for r in loc.reports)
+    if not n_valid:
+        raise AssertionError("localized episode: no valid pose")
+    qsvc = counting(service("localized"), "quarantine drive")
+    now = 0.0
+    for r in range(SERVICE_RIGS):
+        qsvc.submit(r, frames[0, r], now)
+    qsvc.step(now, force=True)
+    t = 1
+    while (1, "quarantine") not in [(e.rig_id, e.kind) for e in qsvc.events]:
+        if t >= 200:
+            raise AssertionError("quarantine drive: rig 1 never quarantined")
+        now = t * SERVICE_DT
+        for r in range(SERVICE_RIGS):
+            if r != 1:
+                qsvc.submit(r, frames[t % SERVICE_T, r], now)
+        qsvc.step(now, force=True)
+        t += 1
+    if qsvc.supervisor.health(1) is not serving.RigHealth.QUARANTINED or \
+            1 in qsvc._loc_state or \
+            set(qsvc._loc_state) != set(range(SERVICE_RIGS)) - {1}:
+        raise AssertionError("quarantine drive: pose state not dropped for "
+                             "rig 1 alone")
+    log(f"[service localized] {len(loc.reports)} reports, 4 launches a "
+        f"batch, poses finite, {n_valid} valid; quarantine drive: rig 1 "
+        f"quarantined after {t} ticks, its pose state dropped, the other "
+        f"{SERVICE_RIGS - 1} kept")
+
+    # 5. the wire format on the card
+    wire_stats = {"fault_free": check_wire([r.output for r in clean.reports],
+                                           "fault-free"),
+                  "localized": check_wire([r.output for r in loc.reports],
+                                          "localized")}
+    log(f"[service wire] {wire_stats}: card payloads byte-identical to the "
+        "CPU encoding")
+    log(f"[service] every input of K1-K4 on the counted steps held to its "
+        f"plain version: {held['calls']} inputs, sparse FE moments within "
+        f"{held['moment_err']}")
+
+    # timings, in turns
+    vs = sessions["f32"]
+    tick_svc = service("f32")
+    u8_svc = service("uint8")
+    host = [frames[0, r] for r in range(SERVICE_RIGS)]
+    host_u8 = [frames_u8[0, r] for r in range(SERVICE_RIGS)]
+    on_card = torch.from_numpy(frames[0]).to(dev)
+    clock = {"now": 0.0}
+
+    def submits(svc, imgs):
+        clock["now"] += SERVICE_DT
+        for r, im in enumerate(imgs):
+            svc.submit(r, im, clock["now"])
+
+    def tick():
+        submits(tick_svc, host)
+        tick_svc.step(clock["now"], force=True)
+
+    runs = {"tick": [], "step": [], "process_fleet": [],
+            "process_fleet_host": [], "submit_f32": [], "submit_u8": []}
+    for rep in range(REPS + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tick()
+        torch.cuda.synchronize()
+        runs["tick"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        submits(tick_svc, host)
+        runs["submit_f32"].append((time.perf_counter() - t0) * 1e3
+                                  / SERVICE_RIGS)
+        t0 = time.perf_counter()
+        tick_svc.step(clock["now"], force=True)
+        torch.cuda.synchronize()
+        runs["step"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        vs.process_fleet(on_card)
+        torch.cuda.synchronize()
+        runs["process_fleet"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        vs.process_fleet(frames[0])
+        torch.cuda.synchronize()
+        runs["process_fleet_host"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        submits(u8_svc, host_u8)
+        runs["submit_u8"].append((time.perf_counter() - t0) * 1e3
+                                 / SERVICE_RIGS)
+        u8_svc.queue.restore_pending([])
+    med = {k: statistics.median(v[3:]) for k, v in runs.items()}
+    for k, v in runs.items():
+        log(f"[service latency] {k}: median {med[k]:.4f} ms over {REPS} "
+            f"(min {min(v[3:]):.4f}, max {max(v[3:]):.4f})"
+            f"{' a rig frame' if k.startswith('submit') else ''}")
+    upload = {}
+    for dtype, imgs in (("f32", host), ("uint8", host_u8)):
+        q = serving.FrameQueue(rig, (cfg.height, cfg.width),
+                               dtype=np.dtype(imgs[0].dtype), device=dev)
+        batch_np = np.stack(imgs)
+        times = {"next_batch": [], "copy": []}
+        for _ in range(REPS + 3):
+            q.restore_pending([])
+            for r, im in enumerate(imgs):
+                q.put(r, im, 0.0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            q.next_batch(1.0, force=True)
+            torch.cuda.synchronize()
+            times["next_batch"].append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            torch.from_numpy(batch_np).to(dev)
+            torch.cuda.synchronize()
+            times["copy"].append((time.perf_counter() - t0) * 1e3)
+        upload[dtype] = {k: statistics.median(v[3:]) for k, v in
+                         times.items()}
+        upload[dtype]["bytes"] = batch_np.nbytes
+        log(f"[service upload] {dtype} 8-rig batch ({batch_np.nbytes} bytes): "
+            f"next_batch {upload[dtype]['next_batch']:.4f} ms, the copy alone "
+            f"{upload[dtype]['copy']:.4f} ms (medians of {REPS})")
+    summary = {}
+    profile_frames(vs, None, call=tick, summary=summary)
+    log("[service profile] a tick: 8 submits and one 8-rig step, the idle "
+        "share above")
+    codec = {}
+    for kind, out in (("stereo", clean.reports[0].output),
+                      ("localized", loc.reports[0].output)):
+        enc, dec = [], []
+        for _ in range(REPS + 3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wire = serving.wire_encode(out)
+            torch.cuda.synchronize()
+            enc.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            serving.wire_decode(wire)
+            torch.cuda.synchronize()
+            dec.append((time.perf_counter() - t0) * 1e3)
+        codec[kind] = {"encode_ms": statistics.median(enc[3:]),
+                       "decode_ms": statistics.median(dec[3:]),
+                       "wire_bytes": compression.wire_bytes(wire),
+                       "tensor_bytes": tensor_bytes(out),
+                       "host_syncs": {
+                           "encode": host_syncs(
+                               lambda: serving.wire_encode(out)),
+                           "decode": host_syncs(
+                               lambda: serving.wire_decode(wire))}}
+        log(f"[service wire] a 720p quad {kind} output: wire_bytes "
+            f"{codec[kind]['wire_bytes']} against {codec[kind]['tensor_bytes']}"
+            f" bytes of tensors; encode {codec[kind]['encode_ms']:.4f} ms, "
+            f"decode {codec[kind]['decode_ms']:.4f} ms (medians of {REPS}); "
+            f"synchronizing calls {codec[kind]['host_syncs']}")
+    submits(tick_svc, host)
+    step_syncs = host_syncs(lambda: tick_svc.step(clock["now"], force=True))
+    log(f"[service] synchronizing calls in an 8-rig step: {step_syncs}")
+    stats = {"latency_ms": med, "upload_ms": upload,
+             "step_host_syncs": step_syncs,
+             "profile_tick": summary, "wire": codec,
+             "wire_checks": wire_stats,
+             "events_fault_episode": len(events),
+             "counters_fault_episode": faulty.status["counters"],
+             "held_to_plain": held}
+    return total, total_u8, stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3350,7 +3875,11 @@ def main() -> int:
     vo_counts, vo_stats = backend_phase(cfg, dev, seq_frames, seq_poses,
                                         intr)
 
-    # 15. result lines
+    # 15. the fleet service (FleetService, run_episode, the wire format)
+    #     at full width
+    service_counts, service_u8_counts, service_stats = service_phase(cfg, dev)
+
+    # 16. result lines
     kernels = []
     meta = {
         "frontend_fused_pyramid": (
@@ -3380,6 +3909,7 @@ def main() -> int:
             "fleet_launches": fleet_counts[name],
             "pipelined_launches": pipe_counts[name],
             "vo_launches": vo_counts[name],
+            "service_launches": service_counts[name],
         })
     keys = ("ms", "device_ms", "bound_ms", "bound_by")
     kernels[0]["textured"] = {
@@ -3433,7 +3963,8 @@ def main() -> int:
             "max_abs_err": st["max_abs_err"], "ms": st["ms"],
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
             "bound_by": st["bound_by"], "library_ms": None,
-            "profiled_device_ms": st["device_ms"], **extra})
+            "profiled_device_ms": st["device_ms"],
+            "service_launches": service_counts[name], **extra})
     for name, source, replaces in (
             ("fast_score_map", "src/repro_torch/kernels/csrc/fast_detect.cu",
              "src/repro/kernels/fast_detect.py:56"),
@@ -3450,7 +3981,8 @@ def main() -> int:
             "max_abs_err": st["max_abs_err"], "ms": st["ms"],
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
             "bound_by": st["bound_by"], "library_ms": st["library_ms"],
-            "profiled_device_ms": st["device_ms"]})
+            "profiled_device_ms": st["device_ms"],
+            "service_launches": service_counts[name]})
     # the uint8 variants, each beside its float kernel on the same values
     by_name = {k["name"]: k for k in kernels}
     for name in [n for n, k in ops.KERNELS.items() if "u8" in k.variants]:
@@ -3468,6 +4000,7 @@ def main() -> int:
             "library_ms": None, "profiled_device_ms": st["device_ms"],
             "fleet_launches": fleet_u8_counts[name],
             "pipelined_launches": pipe_u8_counts[name],
+            "service_launches": service_u8_counts[name],
             **{k: v for k, v in st.items() if k.startswith("float_")}})
     print(json.dumps({"kernels": kernels,
                       "module_split_ms": module_split,
@@ -3481,6 +4014,7 @@ def main() -> int:
                       "fleet": fleet_stats,
                       "pipelined": pipe_stats,
                       "tab1": vo_stats,
+                      "service": service_stats,
                       "empty_launch": floor}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind_name,

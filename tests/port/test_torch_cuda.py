@@ -45,8 +45,8 @@ from repro_torch.kernels import (describe_fused, fast_detect, frontend_fused,
 from repro_torch.kernels.ref import nms3
 
 from parity import (abs_moment_sums, adversarial_matcher_cases,
-                    assert_sparse_parity, matcher_case, scene_frames,
-                    textured_levels)
+                    assert_sparse_parity, matcher_case, near_bin_edge,
+                    scene_frames, textured_levels, ulp_diff)
 
 pytestmark = pytest.mark.gpu
 SHAPES = [(96, 128), (80, 107)]
@@ -868,3 +868,142 @@ def test_backend_on_the_card_matches_the_cpu(cuda, refine, iters):
         map_fields(lambda x: x.to(cuda), feats),
         map_fields(lambda x: x.to(cuda), depth), intr)
     assert torch.equal(on_card.cpu(), backend.triangulate(feats, depth, intr))
+
+
+# -- the serving tier --------------------------------------------------------------
+
+SERVE_DT = 1.0 / 30.0
+SERVE_SPECS = [dict(kind="dead_camera", rig=1, camera=3),
+               dict(kind="corrupt_frame", rig=2, start=1, stop=3, camera=0),
+               dict(kind="desync", rig=3, camera=1, magnitude=0.5),
+               dict(kind="stalled_rig", rig=4, start=1),
+               dict(kind="arrival_jitter", rig=5, magnitude=0.3 * SERVE_DT)]
+
+
+def _serve(device, localize=False):
+    """The fault episode (a dead camera, a corrupt frame, desync, a
+    stall healed by the restart hook and arrival jitter, each on its own
+    rig of 6) at 96 x 128 on a session on ``device``: (result, the
+    launches counted during it, the service)."""
+    from repro_torch import serving
+    seq = scenes.render_fleet_sequence(scenes.SceneConfig(
+        height=96, width=128, n_points=300, baseline=0.3), 4, 6)
+    cfg = ORBConfig(height=96, width=128, max_features=64, max_disparity=64)
+    vs = VisualSystem(RigConfig.quad(seq.intrinsics, desync_policy="degrade",
+                                     max_desync=1e-3),
+                      PipelineConfig(orb=cfg, localize=localize), device)
+    inj = serving.FaultInjector([serving.FaultSpec(**s) for s in SERVE_SPECS],
+                                seed=9)
+    svc = serving.FleetService(
+        vs, serving.QueueConfig(),
+        serving.SupervisorConfig(heartbeat_timeout_s=2.5 * SERVE_DT,
+                                 backoff_base_s=SERVE_DT,
+                                 backoff_max_s=4 * SERVE_DT,
+                                 restart_budget=2, flap_window_s=1.0),
+        inj.clear_rig)
+    with ops.launch_audit() as audit:
+        res = serving.run_episode(svc, np.round(seq.frames), dt=SERVE_DT,
+                                  injector=inj, settle_steps=4)
+        if device != "cpu":
+            torch.cuda.synchronize()
+    return res, audit.count, svc
+
+
+def _hold_card_vs_cpu(got, want):
+    """A card ``StereoOutput`` against the CPU's on the same integer
+    frames: xy, level, score and valid bit-equal, theta within 2 ulp
+    (the card's ``atan2f`` against the CPU's), descriptors equal away
+    from a steering-bin edge; matches and depth equal where no
+    descriptor differs.  Returns the number of descriptors that
+    differ."""
+    got = map_fields(lambda x: x.cpu(), got)
+    n_diff = 0
+    for side in ("features_l", "features_r"):
+        fg, fc = getattr(got, side), getattr(want, side)
+        for name in ("xy", "level", "score", "valid"):
+            assert torch.equal(getattr(fg, name), getattr(fc, name)), name
+        assert ulp_diff(fg.theta.numpy(), fc.theta.numpy()).max(initial=0) <= 2
+        edge = near_bin_edge(fc.theta.numpy(),
+                             4.0 * np.spacing(np.abs(fc.theta.numpy())))
+        diff = (fg.desc != fc.desc).any(-1).numpy()
+        assert not (diff & ~edge).any()
+        n_diff += int(diff.sum())
+    if n_diff == 0:
+        _assert_same(got.matches, want.matches)
+        _assert_same(got.depth, want.depth)
+    return n_diff
+
+
+@pytest.mark.parametrize("localize", [False, True])
+def test_fault_episode_on_the_card_equals_the_cpu(cuda, localize):
+    """The same fault episode on a card session and a CPU session: equal
+    events, status and report metadata (they depend only on the specs
+    and the clock), 3 launches a served batch (4 localized), and every
+    served output equal to the CPU's by the card-against-CPU rule.  A
+    localized rig whose descriptors have matched the CPU's on every
+    frame so far has the CPU's inliers and a pose within 1e-4."""
+    card, launches, svc = _serve("cuda", localize)
+    cpu, _, _ = _serve("cpu", localize)
+    assert [tuple(e) for e in card.events] == [tuple(e) for e in cpu.events]
+    assert card.status == cpu.status
+    meta = [[(r.rig_id, r.t, r.t_arrival, r.status, r.camera_mask.tolist(),
+              r.late) for r in res.reports] for res in (card, cpu)]
+    assert meta[0] == meta[1]
+    assert launches == svc.counters["batches"] * (3 + localize) > 0
+    assert {(4, "restart")} <= {(e.rig_id, e.kind) for e in card.events}
+    diverged, held = set(), 0
+    for got, want in zip(card.reports, cpu.reports):
+        assert got.output.features_l.xy.device.type == "cuda"
+        if not localize:
+            _hold_card_vs_cpu(got.output, want.output)
+            continue
+        if _hold_card_vs_cpu(got.output.stereo, want.output.stereo):
+            diverged.add(got.rig_id)
+        pg, pc = (map_fields(lambda x: x.cpu(), got.output.pose),
+                  want.output.pose)
+        assert torch.isfinite(pg.translation).all()
+        assert bool(pg.valid) == bool(pc.valid)
+        if got.rig_id in diverged:
+            continue
+        assert int(pg.inliers) == int(pc.inliers)
+        for name in ("rotation", "translation"):
+            assert torch.allclose(getattr(pg, name), getattr(pc, name),
+                                  rtol=0, atol=1e-4), name
+        held += int(pc.valid)
+    assert not localize or held > 0
+
+
+@pytest.mark.parametrize("localize", [False, True])
+def test_card_wire_payloads_equal_cpu_encoding(cuda, localize):
+    """``wire_encode`` of every served card output is byte-identical to
+    ``wire_encode`` of the same output moved to the CPU (the quantizer
+    divides tensor by tensor on the card), and the lossless fields
+    round-trip on the card bit for bit."""
+    from repro_torch import serving
+    card, _, _ = _serve("cuda", localize)
+
+    def same(a, b):
+        if isinstance(b, dict):
+            assert set(a) == set(b)
+            for key in b:
+                same(a[key], b[key])
+        elif isinstance(b, torch.Tensor):
+            assert a.device.type == "cuda" and a.dtype == b.dtype
+            assert a.cpu().numpy().tobytes() == b.numpy().tobytes()
+        else:
+            assert a == b
+
+    for rep in card.reports:
+        wire = serving.wire_encode(rep.output)
+        same(wire, serving.wire_encode(map_fields(lambda x: x.cpu(),
+                                                  rep.output)))
+        back = serving.wire_decode(wire)
+        stereo = back.stereo if localize else back
+        src = rep.output.stereo if localize else rep.output
+        for name in ("desc", "level", "valid"):
+            assert torch.equal(getattr(stereo.features_l, name),
+                               getattr(src.features_l, name))
+        _assert_same(stereo.matches, src.matches)
+        if localize:
+            assert torch.equal(back.points, rep.output.points)
+            _assert_same(back.pose, rep.output.pose)

@@ -40,7 +40,11 @@ def test_port_imports_without_jax_or_repro():
               "repro_torch.kernels.sad_rectify", "repro_torch.localization",
               "repro_torch.localization.geometry",
               "repro_torch.localization.metrics",
-              "repro_torch.localization.pose"):
+              "repro_torch.localization.pose",
+              "repro_torch.distributed", "repro_torch.distributed.compression",
+              "repro_torch.serving", "repro_torch.serving.faults",
+              "repro_torch.serving.queue", "repro_torch.serving.service",
+              "repro_torch.serving.supervisor"):
         assert m in mods, m
     code = (
         "import sys, importlib.util\n"
