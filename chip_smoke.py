@@ -209,17 +209,36 @@ failure (the script then exits non-zero and prints no result):
       and bare ``process_fleet`` ms in turns, submit ms (f32, uint8),
       batch upload ms, a tick's idle share, encode/decode ms and
       ``wire_bytes`` against the tensors' bytes;
-  16. print the kernels' JSON line (the uint8 variants as rows
+  16. failover and crash-consistent snapshots at full width
+      (``failover_phase``), on phase 15's 8-rig fleet, every step counted
+      and every K1-K4 input held to plain, the services a restore makes
+      too: kill and recover (a crash after tick 2, a fresh service from
+      the newest snapshot; every report bit-equal to the uninterrupted
+      episode's but each rig's first pose after the restore, identity
+      with ``valid=False``); the same through a torn snapshot (recovery
+      from step 1); ``host_down`` over ``HostMap(host_fault_domains(
+      {"data": 2}))`` (every frame served, moved rigs' chains gapped);
+      a ``dispatch_error`` recovered (bit-equal to the fault-free
+      episode) and a ``stuck_dispatch`` dropped under a
+      ``DispatchGuard``, in a non-default stream, 3 launches a guarded
+      batch and every fault one the injector scheduled; each episode's
+      events, status, recovery and report metadata equal to a CPU
+      session's at 96 x 128, and the card's snapshot leaves at 96 x 128
+      held to the CPU's.  Then ``snapshot.save`` and ``snapshot.restore``
+      ms at 8 rigs, localized, and a guarded step against an unguarded
+      one, in turns;
+  17. print the kernels' JSON line (the uint8 variants as rows
       ``<kernel>_u8``, each with its float kernel's ``float_*`` numbers
       from the same inputs; the sparse FE's and fused matcher's rows with
       their ``textured`` and ``crowded`` runs; K1-K4 and their uint8
       variants with their launches on phase 12's path under
       ``fleet_launches``, on phase 13's under ``pipelined_launches``, on
-      phase 14's under ``vo_launches`` and on phase 15's under
-      ``service_launches``; the fleet's timings under ``fleet``, the
-      pipelined schedule's under ``pipelined``, the Tab. I split under
-      ``tab1``, the service's under ``service``; the empty launch under
-      ``empty_launch``), then ``{"ok": true, "device": ...}`` as the
+      phase 14's under ``vo_launches`` and on phases 15 and 16 under
+      ``service_launches`` (phase 15's alone under ``service``); the
+      fleet's timings under ``fleet``, the pipelined schedule's under
+      ``pipelined``, the Tab. I split under ``tab1``, the service's under
+      ``service``, the failover's under ``failover``; the empty launch
+      under ``empty_launch``), then ``{"ok": true, "device": ...}`` as the
       last line.
 
 Tolerances: integer and bool outputs, blur and score are bit-equal.
@@ -247,6 +266,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -3247,6 +3267,89 @@ def check_wire(outputs, what: str) -> dict:
     return {"outputs": len(outputs), "worst_err_over_bound": worst}
 
 
+@functools.lru_cache(maxsize=1)
+def service_sequence(cfg):
+    """The services' 8-rig fleet (phases 15 and 16):
+    ``render_fleet_sequence`` of phase 4's 720p scene, T = 6."""
+    from repro_torch.data import scenes
+    scene = scenes.SceneConfig(height=cfg.height, width=cfg.width,
+                               n_points=1600, seed=0)
+    return scenes.render_fleet_sequence(scene, SERVICE_T, SERVICE_RIGS)
+
+
+def new_launch_acc() -> dict:
+    """What ``count_steps`` accumulates: each kernel's launches, its
+    uint8 variant's, and the inputs held to plain."""
+    from repro_torch.kernels import ops
+    return {"total": dict.fromkeys(ops.KERNELS, 0),
+            "total_u8": dict.fromkeys(ops.KERNELS, 0),
+            "held": {"calls": 0, "moment_err": 0.0}}
+
+
+def count_steps(svc, what: str, acc: dict):
+    """Wrap ``svc.step``: every step runs with the counts set to 0 just
+    before and read just after, a step that serves a batch launches K1-K3
+    once each (K4 too when the session localizes; the uint8 variants in
+    a uint8 session), a step that serves none launches nothing, and the
+    caller's ``launch_audit`` sees every launch (a guarded step's run in
+    the guard's worker thread).  Every input K1-K4 received is held to
+    its plain version; the served batches are recorded in
+    ``svc.batches``.  ``acc`` accumulates the launches (``total``,
+    ``total_u8``) and the holds (``held``)."""
+    from repro_torch.kernels import describe_fused as de
+    from repro_torch.kernels import frontend_fused as fe
+    from repro_torch.kernels import match_fused as mo
+    from repro_torch.kernels import matcher_fused as mf
+    from repro_torch.kernels import ops
+    total, total_u8, held = acc["total"], acc["total_u8"], acc["held"]
+    step, next_batch = svc.step, svc.queue.next_batch
+    loc = svc.vs.pipe.localize
+    u8 = svc.vs.pipe.precision == "uint8"
+    want = {**{n: 1 for n in ops.FRAME_KERNELS},
+            **({"match_fused": 1} if loc else {})}
+    svc.batches = []
+
+    def record(now, force=False):
+        batch = next_batch(now, force=force)
+        if batch is not None:
+            svc.batches.append(batch)
+        return batch
+
+    def counted_step(now, force=False):
+        served = svc.counters["batches"]
+        with recorded(fe, "frontend_fused_pyramid") as r1, \
+                recorded(de, "describe_fused_pyramid") as r2, \
+                recorded(mf, "match_rectify_fused") as r3, \
+                recorded(mo) as r4:
+            reset_counts()
+            with ops.launch_audit() as audit:
+                reports = step(now, force=force)
+                torch.cuda.synchronize()
+            counts = read_counts()
+        got = {n: c for n, c in counts.items() if c}
+        expect = want if svc.counters["batches"] > served else {}
+        if got != expect or audit.count != sum(expect.values()):
+            raise AssertionError(f"{what}: a step launched {got} (audit "
+                                 f"{audit.count}), expected {expect}")
+        u8_got = {n: c for n, c in read_u8_counts().items() if c}
+        if u8_got != (expect if u8 else {}):
+            raise AssertionError(f"{what}: uint8 variant launches "
+                                 f"{u8_got}")
+        for n, c in counts.items():
+            total[n] += c
+        for n, c in u8_got.items():
+            total_u8[n] += c
+        calls = dict(zip(LOC_KERNELS, (r1, r2, r3, r4)))
+        held["moment_err"] = max(held["moment_err"],
+                                 hold_path_calls(calls, what))
+        held["calls"] += sum(len(r) for r in calls.values())
+        return reports
+
+    svc.queue.next_batch = record
+    svc.step = counted_step
+    return svc
+
+
 def service_phase(cfg, dev):
     """The fleet service at full width (phase 15): ``FleetService`` over
     a card session, ``QueueConfig()`` (buckets 1, 2, 4, 8), 8 rigs of
@@ -3293,15 +3396,9 @@ def service_phase(cfg, dev):
                                   VisualSystem)
     from repro_torch.data import scenes
     from repro_torch.distributed import compression
-    from repro_torch.kernels import describe_fused as de
-    from repro_torch.kernels import frontend_fused as fe
-    from repro_torch.kernels import match_fused as mo
-    from repro_torch.kernels import matcher_fused as mf
     from repro_torch.kernels import ops
 
-    scene = scenes.SceneConfig(height=cfg.height, width=cfg.width,
-                               n_points=1600, seed=0)
-    seq = scenes.render_fleet_sequence(scene, SERVICE_T, SERVICE_RIGS)
+    seq = service_sequence(cfg)
     frames = seq.frames
     rounded = np.round(frames)
     rig = RigConfig.quad(seq.intrinsics, desync_policy="degrade",
@@ -3311,9 +3408,8 @@ def service_phase(cfg, dev):
                 for mode, pipe in (("f32", {}),
                                    ("uint8", {"precision": "uint8"}),
                                    ("localized", {"localize": True}))}
-    total = dict.fromkeys(ops.KERNELS, 0)
-    total_u8 = dict.fromkeys(ops.KERNELS, 0)
-    held = {"calls": 0, "moment_err": 0.0}
+    acc = new_launch_acc()
+    total, total_u8, held = acc["total"], acc["total_u8"], acc["held"]
 
     def service(mode, restart=None, **sup):
         return serving.FleetService(
@@ -3321,54 +3417,7 @@ def service_phase(cfg, dev):
             serving.SupervisorConfig(**{**SERVICE_SUP, **sup}), restart)
 
     def counting(svc, what):
-        """Wrap ``svc.step``: the launches of each step, checked, and its
-        batches recorded ([batch])."""
-        step, next_batch = svc.step, svc.queue.next_batch
-        loc = svc.vs.pipe.localize
-        u8 = svc.vs.pipe.precision == "uint8"
-        want = {**{n: 1 for n in ops.FRAME_KERNELS},
-                **({"match_fused": 1} if loc else {})}
-        svc.batches = []
-
-        def record(now, force=False):
-            batch = next_batch(now, force=force)
-            if batch is not None:
-                svc.batches.append(batch)
-            return batch
-
-        def counted_step(now, force=False):
-            served = svc.counters["batches"]
-            with recorded(fe, "frontend_fused_pyramid") as r1, \
-                    recorded(de, "describe_fused_pyramid") as r2, \
-                    recorded(mf, "match_rectify_fused") as r3, \
-                    recorded(mo) as r4:
-                reset_counts()
-                with ops.launch_audit() as audit:
-                    reports = step(now, force=force)
-                    torch.cuda.synchronize()
-                counts = read_counts()
-            got = {n: c for n, c in counts.items() if c}
-            expect = want if svc.counters["batches"] > served else {}
-            if got != expect or audit.count != sum(expect.values()):
-                raise AssertionError(f"{what}: a step launched {got} (audit "
-                                     f"{audit.count}), expected {expect}")
-            u8_got = {n: c for n, c in read_u8_counts().items() if c}
-            if u8_got != (expect if u8 else {}):
-                raise AssertionError(f"{what}: uint8 variant launches "
-                                     f"{u8_got}")
-            for n, c in counts.items():
-                total[n] += c
-            for n, c in u8_got.items():
-                total_u8[n] += c
-            calls = dict(zip(LOC_KERNELS, (r1, r2, r3, r4)))
-            held["moment_err"] = max(held["moment_err"],
-                                     hold_path_calls(calls, what))
-            held["calls"] += sum(len(r) for r in calls.values())
-            return reports
-
-        svc.queue.next_batch = record
-        svc.step = counted_step
-        return svc
+        return count_steps(svc, what, acc)
 
     def episode(mode, source, specs=(), restart=False, what="",
                 settle=SERVICE_SETTLE):
@@ -3675,6 +3724,547 @@ def service_phase(cfg, dev):
     return total, total_u8, stats
 
 
+# The failover episodes (phase 16): 8 rigs, T = 6, a crash after tick
+# FAILOVER_CRASH_AT.  (mode, guarded, host map, specs, crash).  In the
+# crash episodes and their base, rig 7's frame 1 never arrives: tick 1's
+# seven frames wait (no full bucket, no deadline), so from tick 2 on each
+# tick serves 8 and leaves 7 pending, the crash's snapshot included.
+FAILOVER_CRASH_AT = 2
+FAILOVER_STALL = dict(kind="stalled_rig", rig=SERVICE_RIGS - 1, start=1,
+                      stop=2)
+FAILOVER_GUARD = dict(timeout_s=120.0, max_attempts=2,
+                      backoff_base_s=SERVICE_DT,
+                      backoff_max_s=4 * SERVICE_DT, seed=0)
+FAILOVER_EPISODES = {
+    "base_f32": ("f32", False, False, (), False),
+    "base_localized": ("localized", False, False, (FAILOVER_STALL,),
+                       False),
+    "kill_recover": ("localized", False, False, (FAILOVER_STALL,), True),
+    "corrupt_snapshot": ("localized", False, False,
+                         (FAILOVER_STALL,
+                          dict(kind="corrupt_snapshot",
+                               start=FAILOVER_CRASH_AT)), True),
+    "host_down": ("localized", False, True,
+                  (dict(kind="host_down", rig="host0", start=2),), False),
+    "dispatch_error": ("f32", True, False,
+                       (dict(kind="dispatch_error", start=1, stop=3,
+                             magnitude=1),), False),
+    "stuck_dispatch": ("f32", True, False,
+                       (dict(kind="stuck_dispatch", start=1, stop=3,
+                             magnitude=2),), False),
+}
+FAILOVER_VS_CPU = ("kill_recover", "corrupt_snapshot", "host_down",
+                   "dispatch_error", "stuck_dispatch")
+
+
+def failover_episode(sessions, name: str, frames, snap_dir: str,
+                     count=None):
+    """Episode ``name`` of ``FAILOVER_EPISODES`` over ``sessions`` (mode
+    -> session), snapshotting every tick into ``snap_dir`` and keeping
+    every step; ``count`` wraps each service it makes (the restored one
+    too).  Returns (result, the services made, the injector)."""
+    from repro_torch import serving
+    from repro_torch.launch import host_fault_domains
+    mode, guarded, hosts, specs, crash = FAILOVER_EPISODES[name]
+    inj = serving.FaultInjector([serving.FaultSpec(**s) for s in specs],
+                                seed=11)
+    made = []
+
+    def make():
+        svc = serving.FleetService(
+            sessions[mode], serving.QueueConfig(),
+            serving.SupervisorConfig(**SERVICE_SUP),
+            guard=(serving.DispatchGuard(serving.DispatchGuardConfig(
+                **FAILOVER_GUARD)) if guarded else None),
+            host_map=(serving.HostMap(host_fault_domains({"data": 2}))
+                      if hosts else None))
+        made.append(svc if count is None
+                    else count(svc, f"{name} service {len(made)}"))
+        return made[-1]
+
+    res = serving.run_episode(
+        make(), frames, dt=SERVICE_DT, injector=inj,
+        settle_steps=SERVICE_SETTLE, snapshot_dir=snap_dir,
+        snapshot_keep=len(frames), crash_at=FAILOVER_CRASH_AT if crash else None,
+        restore=make if crash else None)
+    return res, made, inj
+
+
+def scheduled_dispatch_faults(svc, res, inj, what: str) -> dict:
+    """Every fault the guard saw was one the injector scheduled: for each
+    dispatch ordinal, the injector's modes on attempts 1, 2, ... up to
+    its first fault-free attempt give the expected faults
+    (``"error:InjectedDispatchError"``, ``"stall"``), the event kind and
+    whether the batch dropped; the events and ``dispatch_errors``,
+    ``dispatch_stalls``, ``dispatch_retries`` and ``dropped_dispatch``
+    must equal what those imply, or the run fails.  Returns the counts."""
+    from repro_torch.serving import DispatchEvent
+    attempts = svc.guard.cfg.max_attempts
+    want_events, want = [], dict.fromkeys(
+        ("dispatch_errors", "dispatch_stalls", "dispatch_retries",
+         "dropped_dispatch"), 0)
+    n_dispatch = svc.counters["dispatches"]
+    if n_dispatch != len(svc.batches):
+        raise AssertionError(f"{what}: {n_dispatch} dispatches for "
+                             f"{len(svc.batches)} batches")
+    for d, batch in enumerate(svc.batches):
+        faults = []
+        for a in range(1, attempts + 1):
+            mode = inj.dispatch_fault(d, a)
+            if mode is None:
+                break
+            faults.append("stall" if mode == "stall"
+                          else "error:InjectedDispatchError")
+        if not faults:
+            continue
+        ok = len(faults) < attempts
+        want["dispatch_stalls"] += faults.count("stall")
+        want["dispatch_errors"] += len(faults) - faults.count("stall")
+        want["dispatch_retries"] += (len(faults) + ok) - 1
+        want["dropped_dispatch"] += 0 if ok else len(batch.rig_ids)
+        want_events.append(("dispatch_recovered" if ok else "dispatch_drop",
+                            d, len(faults) + ok, tuple(faults)))
+    got_events = [(e.kind, e.dispatch, e.attempts, e.faults)
+                  for e in res.events if isinstance(e, DispatchEvent)]
+    got = {k: res.status["counters"].get(k, 0) for k in want}
+    if got_events != want_events or got != want:
+        raise AssertionError(f"{what}: dispatch faults {got_events}, counts "
+                             f"{got}; the injector scheduled {want_events}, "
+                             f"{want}")
+    return want
+
+
+def hold_snapshot_leaves(card_dir: str, cpu_dir: str, cpu_res,
+                         what: str) -> dict:
+    """The snapshots a card session and a CPU session wrote of one
+    episode at 96 x 128, step by step: equal step lists and indexes
+    (leaf file names too: one process), manifests equal but for the
+    leaves' CRCs, every leaf of one dtype and shape, pending frames and
+    masks byte-equal, and each rig's state as the card-against-CPU rule
+    holds its output (``hold_fleet_card_vs_cpu``): descriptors equal
+    away from a steering-bin edge of the CPU's theta (the rig's last
+    report by the step's time), and where they are equal, ``meta`` and
+    ``valid`` byte-equal and the points equal in value (the rotation's
+    zero terms may sum to -0 on one device and +0 on the other)."""
+    from repro_torch.checkpoint import store
+    steps = store.list_steps(card_dir)
+    if not steps or steps != store.list_steps(cpu_dir):
+        raise AssertionError(f"{what}: snapshot steps {steps} and "
+                             f"{store.list_steps(cpu_dir)}")
+    n_leaves = n_pending = n_diff = 0
+    for step in steps:
+        index, flat, meta = [], [], []
+        for d in (card_dir, cpu_dir):
+            path = os.path.join(d, f"step_{step:08d}", "index.json")
+            with open(path) as f:
+                index.append(json.load(f))
+            flat.append(store.load_flat(d, step))
+            meta.append(json.loads(bytes(flat[-1]["meta"]).decode()))
+        if index[0] != index[1]:
+            raise AssertionError(f"{what} step {step}: indexes differ")
+        crcs = [m.pop("leaf_crcs") for m in meta]
+        if meta[0] != meta[1]:
+            raise AssertionError(f"{what} step {step}: manifests differ")
+        leaves = [[f[f"leaves§{i}"] for i in range(meta[0]["n_leaves"])]
+                  for f in flat]
+        for i, (a, b) in enumerate(zip(*leaves)):
+            if a.dtype != b.dtype or a.shape != b.shape:
+                raise AssertionError(f"{what} step {step} leaf {i}: "
+                                     f"{a.dtype}{a.shape} {b.dtype}{b.shape}")
+        now = step * SERVICE_DT + 0.5 * SERVICE_DT
+        theta = {}
+        for r in cpu_res.reports:
+            if r.t <= now and r.output is not None:
+                theta[r.rig_id] = r.output.stereo.features_l.theta
+        n_loc = len(meta[0]["loc_rigs"])
+        for j, enc in enumerate(meta[0]["loc_rigs"]):
+            desc, mt, pts, valid = zip(*[ls[4 * j:4 * j + 4]
+                                         for ls in leaves])
+            diff = torch.from_numpy((desc[0] != desc[1]).any(-1))
+            th = theta[enc[1]]
+            edge = near_bin_edge(th, 4.0 * torch.from_numpy(
+                np.spacing(np.abs(th.numpy()))))
+            if bool((diff & ~edge).any()):
+                raise AssertionError(f"{what} step {step} rig {enc[1]}: "
+                                     "descriptors differ away from a bin "
+                                     "edge")
+            n_diff += int(diff.sum())
+            if bool(diff.any()):
+                continue
+            if mt[0].tobytes() != mt[1].tobytes() or \
+                    valid[0].tobytes() != valid[1].tobytes() or \
+                    not np.array_equal(pts[0], pts[1]):
+                raise AssertionError(f"{what} step {step} rig {enc[1]}: "
+                                     "state differs from the CPU's")
+            n_leaves += 4
+        for i in range(4 * n_loc, meta[0]["n_leaves"]):
+            if leaves[0][i].tobytes() != leaves[1][i].tobytes() or \
+                    crcs[0][i] != crcs[1][i]:
+                raise AssertionError(f"{what} step {step}: pending leaf "
+                                     f"{i} differs from the CPU's")
+            n_leaves += 1
+            n_pending += 1
+    if not n_pending:
+        raise AssertionError(f"{what}: no pending frame in any snapshot")
+    return {"steps": steps, "leaves_held": n_leaves,
+            "pending_leaves_held": n_pending,
+            "descriptors_at_bin_edge": n_diff}
+
+
+def failover_phase(cfg, dev):
+    """Failover and crash-consistent snapshots at full width (phase 16):
+    ``FleetService`` over card sessions, ``QueueConfig()``, 8 rigs of
+    phase 15's fleet (``service_sequence``), T = 6, snapshots every tick
+    into a temporary directory; every step counted and every K1-K4 input
+    held to plain (``count_steps``, the restored services' steps too).
+
+    1. Kill and recover, localized: a crash after tick 2 and a fresh
+       service from ``restore()``; every rig's reports bit-equal to the
+       uninterrupted episode's, except the pose of each rig's first
+       frame after the restore, identity with ``valid=False``; the
+       frames pending at the crash (``FAILOVER_STALL`` leaves 7) are
+       those of its snapshot and the restored service serves them;
+       every frame served, none pending at the end.
+    2. The same with a ``corrupt_snapshot`` spec: ``recovery`` names
+       step 1 and ``snapshot_fallback`` is true.
+    3. ``host_down`` of host0 over ``HostMap(host_fault_domains({"data":
+       2}))`` at frame 2, localized: every rig serves every frame, each
+       moved rig's first frame after the event does not chain.
+    4. Under a ``DispatchGuard`` in a non-default stream: a
+       ``dispatch_error`` of magnitude 1 (2 attempts) recovers, its
+       reports bit-equal to the fault-free episode's; a
+       ``stuck_dispatch`` of magnitude 2 drops its window's batches.
+       Every fault the guard saw is one the injector scheduled, and the
+       counters are those the specs imply (``scheduled_dispatch_faults``).
+    5. Episodes 1-4 on a CPU session at 96 x 128: equal events, status,
+       recovery (less its wall clock) and report metadata; and the
+       kill-and-recover snapshots a card session writes at 96 x 128
+       held to the CPU session's, leaf by leaf, pending frames too
+       (``hold_snapshot_leaves``).
+
+    Then, each beside the card: ``snapshot.save`` ms a tick at 8 rigs,
+    localized (into a new directory each time), and its parts: the
+    state's copies to the host (``_capture``) and ``store.save`` of the
+    captured tree, with its fsyncs and with ``os.fsync`` a no-op;
+    ``snapshot.load`` and
+    ``snapshot.restore`` ms (a fresh service and its restore: the
+    recovery wall clock), of that step and through a newest step torn
+    as the injector tears it; a guarded no-op call's ms; and a guarded
+    step's ms against an unguarded one's, in turns; medians of 20.
+    Returns (launches of each kernel on the counted steps, stats)."""
+    import tempfile
+    from unittest import mock
+
+    from repro_torch import serving
+    from repro_torch.checkpoint import store
+    from repro_torch.core import (ORBConfig, PipelineConfig, RigConfig,
+                                  VisualSystem)
+    from repro_torch.data import scenes
+
+    seq = service_sequence(cfg)
+    frames = seq.frames
+    rig = RigConfig.quad(seq.intrinsics, desync_policy="degrade",
+                         max_desync=1e-3)
+    modes = (("f32", {}), ("localized", {"localize": True}))
+    card = {m: VisualSystem(rig, PipelineConfig(orb=cfg, **p), device="cuda")
+            for m, p in modes}
+    small = ORBConfig(height=96, width=128, max_features=64,
+                      max_disparity=64)
+    sseq = scenes.render_fleet_sequence(scenes.SceneConfig(
+        height=96, width=128, n_points=300, baseline=0.3), SERVICE_T,
+        SERVICE_RIGS)
+    srig = RigConfig.quad(sseq.intrinsics, desync_policy="degrade",
+                          max_desync=1e-3)
+    cpu = {m: VisualSystem(srig, PipelineConfig(orb=small, **p),
+                           device="cpu") for m, p in modes}
+    acc = new_launch_acc()
+    side = torch.cuda.Stream()
+    res, made, injs = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="failover_") as tmp:
+        for name in FAILOVER_EPISODES:
+            guarded = FAILOVER_EPISODES[name][1]
+            with torch.cuda.stream(side) if guarded else \
+                    contextlib.nullcontext():
+                res[name], made[name], injs[name] = failover_episode(
+                    card, name, frames, os.path.join(tmp, name),
+                    count=lambda svc, what: count_steps(svc, what, acc))
+            torch.cuda.synchronize()
+            r = res[name]
+            n_batches = sum(len(svc.batches) for svc in made[name])
+            log(f"[failover {name}] {len(r.reports)} reports, {n_batches} "
+                f"batches counted over {len(made[name])} service(s), "
+                f"{len(r.events)} events, recovery {r.recovery}, counters "
+                f"{dict(sorted(r.status['counters'].items()))}")
+
+        def by_key(result):
+            return {(r.rig_id, round(r.t_arrival, 9)): r
+                    for r in result.reports if r.output is not None}
+
+        # 1. kill and recover
+        crash_time = FAILOVER_CRASH_AT * SERVICE_DT + 0.5 * SERVICE_DT + 1e-9
+        base, crashed = by_key(res["base_localized"]), by_key(
+            res["kill_recover"])
+        n_frames = SERVICE_RIGS * SERVICE_T - (FAILOVER_STALL["stop"]
+                                               - FAILOVER_STALL["start"])
+        if set(base) != set(crashed) or len(base) != n_frames:
+            raise AssertionError("kill and recover: served frames differ "
+                                 "from the uninterrupted episode's")
+        st = res["kill_recover"].status
+        if st["queue"]["pending"] or st["counters"]["frames_out"] != n_frames:
+            raise AssertionError(f"kill and recover: frames lost {st}")
+        rec = res["kill_recover"].recovery
+        if rec["restored_step"] != FAILOVER_CRASH_AT or \
+                rec["snapshot_fallback"]:
+            raise AssertionError(f"kill and recover: recovery {rec}")
+        # the frames pending at the crash went through its snapshot and
+        # were served by the restored service
+        crash_meta = serving.snapshot._load_step(
+            os.path.join(tmp, "kill_recover"), FAILOVER_CRASH_AT)[0]
+        at_crash = {(p["rig_id"][1], round(p["t_arrival"], 9))
+                    for p in crash_meta["pending"]}
+        carried = {k for k, r in crashed.items()
+                   if r.t > crash_time and r.t_arrival < crash_time}
+        if not at_crash or carried != at_crash:
+            raise AssertionError(f"kill and recover: pending at the crash "
+                                 f"{sorted(at_crash)}, served after the "
+                                 f"restore {sorted(carried)}")
+        first_after, n_equal, n_valid_after = {}, 0, 0
+        for key in sorted(crashed, key=lambda k: (crashed[k].t, k)):
+            if crashed[key].t > crash_time:
+                first_after.setdefault(key[0], key)
+        if len(first_after) != SERVICE_RIGS:
+            raise AssertionError("kill and recover: a rig never served "
+                                 "after the restore")
+        eye = torch.eye(3, device=dev)
+        for key, got in crashed.items():
+            want = base[key]
+            equal_fields(got.output.stereo, want.output.stereo,
+                         f"kill and recover rig {key[0]} stereo")
+            equal_or_raise(got.output.points, want.output.points,
+                           f"kill and recover rig {key[0]} points")
+            if first_after[key[0]] == key:
+                pose = got.output.pose
+                if bool(pose.valid.any()) or not torch.equal(
+                        pose.rotation, eye) or bool(pose.translation.any()):
+                    raise AssertionError(f"kill and recover rig {key[0]}: "
+                                         "chained a pose across the crash")
+            else:
+                equal_fields(got.output.pose, want.output.pose,
+                             f"kill and recover rig {key[0]} pose")
+                n_valid_after += got.t > crash_time and bool(
+                    got.output.pose.valid)
+            n_equal += 1
+        if not n_valid_after:
+            raise AssertionError("kill and recover: no pose chain was "
+                                 "re-established")
+        log(f"[failover kill_recover] {n_equal} reports bit-equal to the "
+            f"uninterrupted episode; each rig's first frame after the "
+            f"restore identity with valid=False; {n_valid_after} valid "
+            f"poses after it; the {len(at_crash)} frames pending at the "
+            "crash served by the restored service; none pending at the "
+            f"end; restore {rec['recovery_wall_s'] * 1e3:.4f} ms")
+
+        # 2. a torn newest snapshot
+        rec = res["corrupt_snapshot"].recovery
+        if rec["restored_step"] != FAILOVER_CRASH_AT - 1 or \
+                not rec["snapshot_fallback"]:
+            raise AssertionError(f"torn snapshot: recovery {rec}")
+        if res["corrupt_snapshot"].status["queue"]["pending"] or not any(
+                r.t > crash_time for r in res["corrupt_snapshot"].reports):
+            raise AssertionError("torn snapshot: nothing served after the "
+                                 "restore, or frames left pending")
+        log(f"[failover corrupt_snapshot] recovered from step "
+            f"{rec['restored_step']} (fallback), "
+            f"{rec['recovery_wall_s'] * 1e3:.4f} ms")
+
+        # 3. host down
+        hd = res["host_down"]
+        host_evs = [e for e in hd.events
+                    if getattr(e, "kind", None) == "host_down"]
+        moved = [r for r, _ in host_evs[0].moved] if host_evs else []
+        if len(host_evs) != 1 or not moved or \
+                hd.status["hosts"]["hosts"] != ["host1"] or \
+                hd.status["counters"]["rigs_redistributed"] != len(moved):
+            raise AssertionError(f"host down: events {host_evs}, status "
+                                 f"{hd.status.get('hosts')}")
+        served = by_key(hd)
+        for rid in range(SERVICE_RIGS):
+            if sum(k[0] == rid for k in served) != SERVICE_T:
+                raise AssertionError(f"host down: rig {rid} missed frames")
+        for rid in moved:
+            post = sorted((r for k, r in served.items() if k[0] == rid
+                           and r.t > host_evs[0].now), key=lambda r: r.t)
+            if not post or bool(post[0].output.pose.valid.any()):
+                raise AssertionError(f"host down: moved rig {rid} chained "
+                                     "across its migration")
+        log(f"[failover host_down] host0's rigs {moved} moved to host1, "
+            f"every rig served all {SERVICE_T} frames, each moved rig's "
+            "first frame after the event unchained")
+
+        # 4. the guard
+        dispatch = {}
+        for name in ("dispatch_error", "stuck_dispatch"):
+            dispatch[name] = scheduled_dispatch_faults(
+                made[name][0], res[name], injs[name], name)
+        base_f = by_key(res["base_f32"])
+        got = by_key(res["dispatch_error"])
+        if set(got) != set(base_f):
+            raise AssertionError("dispatch_error: served frames differ from "
+                                 "the fault-free episode's")
+        for key, r in got.items():
+            equal_fields(r.output, base_f[key].output,
+                         f"dispatch_error rig {key[0]}")
+        if not dispatch["stuck_dispatch"]["dropped_dispatch"]:
+            raise AssertionError("stuck_dispatch dropped nothing")
+        log(f"[failover guard] in a side stream, 3 launches a guarded batch "
+            f"as unguarded; every fault scheduled by the injector: "
+            f"{dispatch}; dispatch_error's {len(got)} reports bit-equal to "
+            "the fault-free episode's")
+
+        # 5. against the CPU
+        cpu_frames = np.round(sseq.frames)
+        cpu_res = {}
+        for name in FAILOVER_VS_CPU:
+            card_r = res[name]
+            cpu_res[name] = c = failover_episode(
+                cpu, name, cpu_frames, os.path.join(tmp, "cpu_" + name))[0]
+            same = ([tuple(e) for e in card_r.events] ==
+                    [tuple(e) for e in c.events]
+                    and card_r.status == c.status
+                    and [(r.rig_id, r.t, r.t_arrival, r.status, r.late)
+                         for r in card_r.reports] ==
+                    [(r.rig_id, r.t, r.t_arrival, r.status, r.late)
+                     for r in c.reports])
+            strip = [None if x.recovery is None else
+                     {k: v for k, v in x.recovery.items()
+                      if k != "recovery_wall_s"} for x in (card_r, c)]
+            if not same or strip[0] != strip[1]:
+                raise AssertionError(f"{name}: the card's events, status, "
+                                     "recovery or reports differ from the "
+                                     "CPU session's")
+        small_card = {m: VisualSystem(srig, PipelineConfig(orb=small, **p),
+                                      device="cuda") for m, p in modes}
+        failover_episode(small_card, "kill_recover", cpu_frames,
+                         os.path.join(tmp, "card_small"))
+        torch.cuda.synchronize()
+        leaves = hold_snapshot_leaves(os.path.join(tmp, "card_small"),
+                                      os.path.join(tmp, "cpu_kill_recover"),
+                                      cpu_res["kill_recover"],
+                                      "snapshot leaves")
+        log(f"[failover] episodes {list(FAILOVER_VS_CPU)}: events, status, "
+            "recovery and report metadata equal to a CPU session's at 96 x "
+            f"128; kill-and-recover snapshot leaves held to the CPU's: "
+            f"{leaves}")
+        log(f"[failover] every input of K1-K4 on the counted steps held to "
+            f"its plain version: {acc['held']['calls']} inputs, sparse FE "
+            f"moments within {acc['held']['moment_err']}")
+
+        # timings, in turns, beside the card
+        log(card_line())
+        loc = serving.FleetService(card["localized"], serving.QueueConfig())
+        for t in range(2):
+            for r in range(SERVICE_RIGS):
+                loc.submit(r, frames[t, r], t * SERVICE_DT)
+            loc.step(t * SERVICE_DT, force=True)
+        torch.cuda.synchronize()
+        runs = {k: [] for k in ("snapshot_save", "snapshot_capture",
+                                "store_save", "store_save_nofsync",
+                                "snapshot_load", "snapshot_restore",
+                                "snapshot_load_torn", "snapshot_restore_torn",
+                                "guard_noop")}
+
+        def timed(key, fn):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            runs[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def restore_fresh(d):
+            fresh = serving.FleetService(card["localized"],
+                                         serving.QueueConfig())
+            return fresh, serving.snapshot.restore(fresh, d)
+
+        for rep in range(REPS + 3):
+            good = os.path.join(tmp, "timing", str(rep))
+            timed("snapshot_save",
+                  lambda: serving.snapshot.save(loc, good, step=0))
+            # the save in parts: the state's copies to the host, then the
+            # store's writes with and without their fsyncs
+            meta, captured = timed("snapshot_capture",
+                                   lambda: serving.snapshot._capture(loc))
+            tree = {"meta": np.frombuffer(json.dumps(meta).encode(),
+                                          np.uint8).copy(),
+                    "leaves": captured}
+            timed("store_save", lambda: store.save(
+                os.path.join(tmp, "store", str(rep)), 0, tree))
+            with mock.patch.object(os, "fsync", lambda fd: None):
+                timed("store_save_nofsync", lambda: store.save(
+                    os.path.join(tmp, "nofsync", str(rep)), 0, tree))
+            timed("snapshot_load", lambda: serving.snapshot.load(good))
+            fresh, got = timed("snapshot_restore",
+                               lambda: restore_fresh(good))
+            if got != 0 or set(fresh._loc_state) != set(range(SERVICE_RIGS)):
+                raise AssertionError("timing: the restore lost rigs' states")
+            # the newest step torn (the injector's tear of a crash at 2)
+            torn = os.path.join(tmp, "torn", str(rep))
+            for step in (0, 1):
+                serving.snapshot.save(loc, torn, step=step)
+            cut = serving.FaultInjector(
+                [serving.FaultSpec("corrupt_snapshot", start=2)],
+                seed=rep).snapshot_corruption(2)
+            serving.snapshot.corrupt_newest(torn, cut["leaf_index"],
+                                            cut["keep_fraction"])
+            if timed("snapshot_load_torn",
+                     lambda: serving.snapshot.load(torn))[0] != 0:
+                raise AssertionError("timing: the torn step was loaded")
+            if timed("snapshot_restore_torn",
+                     lambda: restore_fresh(torn))[1] != 0:
+                raise AssertionError("timing: the torn restore did not fall "
+                                     "back a step")
+        noop = serving.DispatchGuard(serving.DispatchGuardConfig(
+            **FAILOVER_GUARD))
+        for rep in range(REPS + 3):
+            if not timed("guard_noop", lambda: noop.run(rep, int)).ok:
+                raise AssertionError("timing: a no-op guarded call failed")
+        plain = serving.FleetService(card["f32"], serving.QueueConfig())
+        guarded = serving.FleetService(
+            card["f32"], serving.QueueConfig(),
+            guard=serving.DispatchGuard(serving.DispatchGuardConfig(
+                **FAILOVER_GUARD)))
+        step_ms = {"unguarded": [], "guarded": []}
+        for rep in range(REPS + 3):
+            now = rep * SERVICE_DT
+            order = (("unguarded", plain), ("guarded", guarded))
+            for label, svc in order[::1 if rep % 2 == 0 else -1]:
+                for r in range(SERVICE_RIGS):
+                    svc.submit(r, frames[rep % SERVICE_T, r], now)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if not svc.step(now, force=True):
+                    raise AssertionError(f"timing: {label} step served "
+                                         "nothing")
+                torch.cuda.synchronize()
+                step_ms[label].append((time.perf_counter() - t0) * 1e3)
+        if guarded.counters["dispatches"] != REPS + 3 or any(
+                isinstance(e, serving.DispatchEvent)
+                for e in guarded.events):
+            raise AssertionError("timing: the guarded steps saw a fault")
+    runs["step_unguarded"] = step_ms["unguarded"]
+    runs["step_guarded"] = step_ms["guarded"]
+    med = {k: statistics.median(v[3:]) for k, v in runs.items()}
+    for k, v in runs.items():
+        log(f"[failover latency] {k}: median {med[k]:.4f} ms over {REPS} "
+            f"(min {min(v[3:]):.4f}, max {max(v[3:]):.4f}), 8 rigs at 720p")
+    stats = {"latency_ms": med, "launches": {
+        n: c for n, c in acc["total"].items() if c},
+        "held_to_plain": acc["held"], "dispatch": dispatch,
+        "recovery": {n: res[n].recovery for n in ("kill_recover",
+                                                  "corrupt_snapshot")},
+        "host_down_moved": moved, "snapshot_leaves_vs_cpu": leaves}
+    return acc["total"], stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3879,7 +4469,15 @@ def main() -> int:
     #     at full width
     service_counts, service_u8_counts, service_stats = service_phase(cfg, dev)
 
-    # 16. result lines
+    # 16. failover and crash-consistent snapshots at full width; their
+    #     launches join phase 15's under service_launches
+    failover_counts, failover_stats = failover_phase(cfg, dev)
+    service_stats["phase15_launches"] = {
+        n: c for n, c in service_counts.items() if c}
+    service_counts = {n: c + failover_counts[n]
+                      for n, c in service_counts.items()}
+
+    # 17. result lines
     kernels = []
     meta = {
         "frontend_fused_pyramid": (
@@ -4015,6 +4613,7 @@ def main() -> int:
                       "pipelined": pipe_stats,
                       "tab1": vo_stats,
                       "service": service_stats,
+                      "failover": failover_stats,
                       "empty_launch": floor}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind_name,

@@ -24,9 +24,8 @@ Fault kinds (who detects them is part of the contract):
                      queue deadlines/bucketing, not a fault per se.
 
 Host-level faults (the failure domain is the serving host, not a rig;
-all still pure functions of (spec, seed, frame)).  The service layers
-that act on them (host map, dispatch guard, snapshots) are ROADMAP
-A10b; the queries below are ported as they are:
+all still pure functions of (spec, seed, frame)); ``run_episode`` and
+the service's ``DispatchGuard``, ``HostMap`` and snapshots act on them:
 
   ``host_down``        ``rig`` names the HOST fault domain; fires once
                        at ``start`` -> ``FleetService.host_down``

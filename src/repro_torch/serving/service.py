@@ -24,16 +24,17 @@ JAX service's under the same seeds.
 
 The queue builds each batch on the session's device, each frame copied
 once into its row; a served batch is the session's 3 launches (4
-localized) and the service adds none.  The failover layer (a dispatch
-guard, a host map and ``host_down`` redistribution) and crash-consistent
-snapshots are not ported yet (ROADMAP A10b): ``guard=``, ``host_map=``,
-``snapshot_dir=``, ``crash_at=`` and ``restore=`` raise
-``NotImplementedError``.
+localized) and the service adds none, guarded or not.  The failover
+layer (``serving.failover``: a ``DispatchGuard`` around each batch's
+compute, a ``HostMap`` with ``host_down`` redistribution) and
+crash-consistent snapshots (``serving.snapshot``: ``run_episode``'s
+kill-and-recover) are optional and keep the same discipline.
 """
 
 from __future__ import annotations
 
 import collections
+import time
 import typing
 
 import numpy as np
@@ -45,12 +46,12 @@ from repro_torch.core.types import (LocalizationOutput, StereoOutput,
                                     combine_fields, map_fields)
 from repro_torch.distributed import compression
 from repro_torch.kernels.hamming_match import BIG as NO_MATCH_DIST
+from repro_torch.serving import snapshot
+from repro_torch.serving.failover import (DispatchEvent, DispatchGuard,
+                                          HostEvent, HostMap)
 from repro_torch.serving.faults import FaultInjector
 from repro_torch.serving.queue import FrameQueue, QueueConfig
 from repro_torch.serving.supervisor import Supervisor, SupervisorConfig
-
-_A10B = ("is not ported yet: the failover layer and crash-consistent "
-         "snapshots are ROADMAP A10b")
 
 
 class RigReport(typing.NamedTuple):
@@ -73,11 +74,9 @@ class FleetService:
     def __init__(self, vs: VisualSystem,
                  queue_cfg: QueueConfig | None = None,
                  sup_cfg: SupervisorConfig | None = None,
-                 restart_cb=None, guard=None, host_map=None) -> None:
-        if guard is not None:
-            raise NotImplementedError(f"FleetService(guard=...) {_A10B}")
-        if host_map is not None:
-            raise NotImplementedError(f"FleetService(host_map=...) {_A10B}")
+                 restart_cb=None,
+                 guard: DispatchGuard | None = None,
+                 host_map: HostMap | None = None) -> None:
         self.vs = vs
         # The queue buffers frames in the session's datapath dtype — a
         # uint8-precision session keeps the whole intake path 8-bit —
@@ -89,6 +88,12 @@ class FleetService:
                                 queue_cfg, dtype=self._frame_dtype,
                                 device=vs.device)
         self.supervisor = Supervisor(sup_cfg, restart_cb)
+        # Optional failover layer: a DispatchGuard turns stuck/throwing
+        # dispatches into counted retries/drops; a HostMap places rigs
+        # on host fault domains so ``host_down`` can redistribute.
+        self.guard = guard
+        self.host_map = host_map
+        self._dispatch_injector: FaultInjector | None = None
         self.events: list = []
         self.counters = collections.Counter()
         # Per-rig cross-frame localization memory (LocalizationState),
@@ -108,6 +113,8 @@ class FleetService:
         bugs, not sensor faults)."""
         now = float(t_arrival)
         self.supervisor.register(rig_id, now)
+        if self.host_map is not None:
+            self.host_map.assign(rig_id)
         self.counters["frames_in"] += 1
         if self.supervisor.health(rig_id) is not None \
                 and self.supervisor.health(rig_id).value == "quarantined":
@@ -207,14 +214,28 @@ class FleetService:
         if batch is None:
             return []
         localize = self.vs.pipe.localize
-        if localize:
-            out = self.vs.process_fleet(batch.images,
-                                        camera_mask=batch.camera_mask,
-                                        prev=self._assemble_prev(batch))
-            state = localization.state_from(out)
+
+        def _compute():
+            if localize:
+                out = self.vs.process_fleet(batch.images,
+                                            camera_mask=batch.camera_mask,
+                                            prev=self._assemble_prev(batch))
+                return out, localization.state_from(out)
+            return self.vs.process_fleet(batch.images,
+                                         camera_mask=batch.camera_mask), None
+
+        if self.guard is not None:
+            out, state = self._guarded(_compute, now)
+            if out is None:
+                # Budget exhausted: the batch is dropped (counted per
+                # rig frame, health degraded) but the loop keeps
+                # serving — same never-crash discipline as intake.
+                for rig_id in batch.rig_ids:
+                    self.counters["dropped_dispatch"] += 1
+                    self.supervisor.heartbeat(rig_id, now, degraded=True)
+                return []
         else:
-            out = self.vs.process_fleet(batch.images,
-                                        camera_mask=batch.camera_mask)
+            out, state = _compute()
         self.counters["batches"] += 1
         self.counters["padded_rows"] += len(batch.rig_mask) - batch.n_real
         reports = []
@@ -233,22 +254,62 @@ class FleetService:
             self.counters["late_frames"] += int(batch.late[b])
         return reports
 
+    def _guarded(self, compute, now: float):
+        """Run one batch compute under the ``DispatchGuard``: stalls and
+        exceptions become counted events + deterministic-backoff retries,
+        and an exhausted budget returns ``(None, None)`` instead of
+        raising.  The dispatch ordinal keys the injector window AND the
+        backoff stream, and lives in ``counters`` so it survives a
+        snapshot/restore (a restored service does not replay old
+        ordinals)."""
+        dispatch = int(self.counters["dispatches"])
+        self.counters["dispatches"] += 1
+        inj = self._dispatch_injector
+        inject = (None if inj is None
+                  else lambda attempt: inj.dispatch_fault(dispatch, attempt))
+        outcome = self.guard.run(dispatch, compute, inject=inject)
+        for fault in outcome.faults:
+            kind = "dispatch_stalls" if fault == "stall" \
+                else "dispatch_errors"
+            self.counters[kind] += 1
+        if outcome.faults:
+            self.counters["dispatch_retries"] += outcome.attempts - 1
+            self.events.append(DispatchEvent(
+                "dispatch_recovered" if outcome.ok else "dispatch_drop",
+                float(now), dispatch, outcome.attempts, outcome.faults,
+                outcome.backoff_s))
+        if not outcome.ok:
+            return None, None
+        return outcome.value
+
     # -- failover ----------------------------------------------------------
 
-    def host_down(self, host, now: float):
-        """A host fault domain died.  Redistribution needs a host map
-        (ROADMAP A10b), and a service has none, so this raises as the
-        JAX service does without one."""
-        raise ValueError(
-            "FleetService.host_down needs a HostMap (pass host_map= "
-            "at construction)")
+    def host_down(self, host, now: float) -> HostEvent:
+        """A host fault domain died: redistribute its rigs over the
+        survivors (``HostMap.host_down``) and gap their pose chains —
+        migration is a stream gap exactly like a restart, so a moved
+        rig's next frame reports identity + ``valid=False`` rather than
+        chaining across the outage.  Supervisor state is untouched: the
+        rigs themselves are healthy, they just live somewhere else now."""
+        if self.host_map is None:
+            raise ValueError(
+                "FleetService.host_down needs a HostMap (pass host_map= "
+                "at construction)")
+        moved = self.host_map.host_down(host)
+        for rig_id, _ in moved:
+            self._loc_state.pop(rig_id, None)
+        self.counters["host_down_events"] += 1
+        self.counters["rigs_redistributed"] += len(moved)
+        event = HostEvent("host_down", float(now), host, moved)
+        self.events.append(event)
+        return event
 
     def status(self, now: float) -> dict:
         """Structured service snapshot: supervisor report + queue depth
         + intake/serve counters (queue-side drop/lateness tallies are
         mirrored into ``counters`` so one dict answers "what did we
-        lose")."""
-        return {
+        lose"), plus host placement when a ``HostMap`` is attached."""
+        out = {
             "supervisor": self.supervisor.status_report(now),
             "queue": {"pending": self.queue.pending(),
                       "oldest_wait_s": self.queue.oldest_wait(now),
@@ -256,6 +317,9 @@ class FleetService:
             "counters": {**dict(self.counters),
                          "dropped_overflow": self.queue.dropped_overflow},
         }
+        if self.host_map is not None:
+            out["hosts"] = self.host_map.status()
+        return out
 
 
 def wire_encode(output) -> dict:
@@ -302,15 +366,16 @@ def wire_decode(wire: dict):
 
 class EpisodeResult(typing.NamedTuple):
     reports: list        # every RigReport, in service order
-    events: list         # Supervisor events, in order
+    events: list         # Supervisor/Dispatch/Host events, in order
     status: dict         # final FleetService.status snapshot
+    recovery: dict | None = None   # kill-and-recover timing (crash_at)
 
 
 def run_episode(service: FleetService, frames, dt: float = 1.0 / 30.0,
                 t0: float = 0.0, rig_ids: typing.Sequence | None = None,
                 injector: FaultInjector | None = None,
                 settle_steps: int = 4,
-                snapshot_dir: str | None = None,
+                snapshot_dir: str | None = None, snapshot_keep: int = 3,
                 crash_at: int | None = None,
                 restore=None) -> EpisodeResult:
     """Drive a deterministic streaming episode on a virtual clock.
@@ -318,25 +383,33 @@ def run_episode(service: FleetService, frames, dt: float = 1.0 / 30.0,
     ``frames``: (T, n_rigs, n_cameras, H, W).  Frame t of rig r nominally
     arrives at ``t0 + t * dt`` with trigger tags equal to the arrival
     time; the optional ``injector`` perturbs images/tags/arrival or
-    withholds delivery per its specs (a ``host_down`` spec fires at its
-    start frame through ``service.host_down``, which raises without a
-    host map).  After the T arrival ticks, ``settle_steps`` extra
+    withholds delivery per its specs (and its host-level specs fire
+    here: ``host_down`` at its start frame, dispatch faults through the
+    service's guard).  After the T arrival ticks, ``settle_steps`` extra
     force-flushed ticks let watchdog timeouts, backoff restarts and the
     final partial batch play out.
 
-    Kill-and-recover (``snapshot_dir``, ``crash_at``, ``restore``) needs
-    crash-consistent snapshots, ROADMAP A10b: any of them raises
-    ``NotImplementedError``."""
-    for name, value in (("snapshot_dir", snapshot_dir),
-                        ("crash_at", crash_at), ("restore", restore)):
-        if value is not None:
-            raise NotImplementedError(f"run_episode({name}=...) {_A10B}")
+    Kill-and-recover: with ``snapshot_dir`` set, every tick ends in a
+    crash-consistent ``serving.snapshot`` save (keeping the newest
+    ``snapshot_keep`` steps); with ``crash_at=t`` the service object is
+    DESTROYED after tick ``t`` and replaced by ``restore()`` (a zero-arg
+    factory building a fresh, cold ``FleetService``) restored from the
+    newest verifiable snapshot — through any ``corrupt_snapshot``
+    tearing the injector dictates.  The episode then simply continues;
+    ``result.recovery`` reports the restored step and the recovery wall
+    clock.
+    """
+    if crash_at is not None and (restore is None or snapshot_dir is None):
+        raise ValueError("crash_at requires restore= and snapshot_dir=")
     frames = np.asarray(frames)
     t_total, n_rigs = frames.shape[0], frames.shape[1]
     n_cameras = frames.shape[2]
     if rig_ids is None:
         rig_ids = tuple(range(n_rigs))
+    service._dispatch_injector = injector
     reports: list[RigReport] = []
+    pre_crash_events: list = []
+    recovery = None
     for t in range(t_total):
         now = t0 + t * dt
         if injector is not None:
@@ -354,9 +427,30 @@ def run_episode(service: FleetService, frames, dt: float = 1.0 / 30.0,
                            timestamps=inj.timestamps,
                            camera_mask=inj.camera_mask)
         reports.extend(service.step(now + 0.5 * dt))
+        if snapshot_dir is not None:
+            snapshot.save(service, snapshot_dir, step=t, keep=snapshot_keep)
+        if crash_at is not None and t == crash_at:
+            pre_crash_events = list(service.events)
+            torn = (injector.snapshot_corruption(t)
+                    if injector is not None else None)
+            if torn is not None:
+                snapshot.corrupt_newest(snapshot_dir, torn["leaf_index"],
+                                        torn["keep_fraction"])
+            wall = time.perf_counter()
+            service = restore()
+            restored_step = snapshot.restore(service, snapshot_dir)
+            wall = time.perf_counter() - wall
+            service._dispatch_injector = injector
+            recovery = {
+                "crash_at": int(t),
+                "restored_step": restored_step,
+                "recovery_wall_s": float(wall),
+                "snapshot_fallback": bool(restored_step is not None
+                                          and restored_step < t),
+            }
     for k in range(settle_steps):
         now = t0 + (t_total + k) * dt
         reports.extend(service.step(now, force=True))
     final = t0 + (t_total + settle_steps) * dt
-    return EpisodeResult(reports, list(service.events),
-                         service.status(final))
+    return EpisodeResult(reports, pre_crash_events + list(service.events),
+                         service.status(final), recovery)

@@ -1007,3 +1007,90 @@ def test_card_wire_payloads_equal_cpu_encoding(cuda, localize):
         if localize:
             assert torch.equal(back.points, rep.output.points)
             _assert_same(back.pose, rep.output.pose)
+
+
+# -- failover and snapshots ----------------------------------------------------------
+
+def test_guarded_step_launches_on_the_callers_stream(cuda):
+    """A guarded step inside a non-default stream: the worker thread runs
+    on the caller's device and stream, the caller's ``launch_audit``
+    counts its 3 launches, as many as an unguarded step's, and the
+    reports are bit-equal."""
+    from repro_torch import serving
+    seq = scenes.render_fleet_sequence(scenes.SceneConfig(
+        height=96, width=128, n_points=300, baseline=0.3), 1, 2)
+    cfg = ORBConfig(height=96, width=128, max_features=64, max_disparity=64)
+    vs = VisualSystem(RigConfig.quad(seq.intrinsics),
+                      PipelineConfig(orb=cfg), "cuda")
+    guard = serving.DispatchGuard(serving.DispatchGuardConfig(timeout_s=120.0))
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        out = guard.run("stream", torch.cuda.current_stream)
+    assert out.ok and out.value == side
+    results = []
+    for g in (None, guard):
+        svc = serving.FleetService(vs, serving.QueueConfig(), guard=g)
+        for r in range(2):
+            svc.submit(r, np.round(seq.frames[0, r]), 0.0)
+        with torch.cuda.stream(side), ops.launch_audit() as audit:
+            reports = svc.step(1.0, force=True)
+        side.synchronize()
+        results.append((audit.count, reports))
+    (n0, plain), (n1, guarded) = results
+    assert n0 == n1 == 3
+    for a, b in zip(guarded, plain):
+        _assert_same(a.output, b.output)
+
+
+def _kill_and_recover(device, tmp_path, torn: bool):
+    """The localized fault-free episode at 96 x 128 with snapshots every
+    tick and a crash after tick 1 (with a torn newest snapshot when
+    ``torn``): (result, launches counted during it, batches served:
+    one a service step that reported)."""
+    from repro_torch import serving
+    seq = scenes.render_fleet_sequence(scenes.SceneConfig(
+        height=96, width=128, n_points=300, baseline=0.3), 4, 3)
+    cfg = ORBConfig(height=96, width=128, max_features=64, max_disparity=64)
+    vs = VisualSystem(RigConfig.quad(seq.intrinsics),
+                      PipelineConfig(orb=cfg, localize=True), device)
+    def fresh():
+        return serving.FleetService(vs, serving.QueueConfig())
+
+    inj = serving.FaultInjector(
+        [serving.FaultSpec("corrupt_snapshot", start=1)] if torn else [],
+        seed=11)
+    with ops.launch_audit() as audit:
+        res = serving.run_episode(fresh(), np.round(seq.frames),
+                                  dt=SERVE_DT, injector=inj, settle_steps=4,
+                                  snapshot_dir=str(tmp_path / device),
+                                  crash_at=1, restore=fresh)
+        if device != "cpu":
+            torch.cuda.synchronize()
+    return res, audit.count, len({r.t for r in res.reports})
+
+
+@pytest.mark.parametrize("torn", [False, True])
+def test_kill_and_recover_on_the_card_equals_the_cpu(cuda, tmp_path, torn):
+    """Kill and recover on a card session and a CPU session: equal
+    events, status, recovery record (less its wall clock) and report
+    metadata; 4 launches a served batch; the restored service's first
+    report of each rig is identity with ``valid=False``."""
+    card, launches, batches = _kill_and_recover("cuda", tmp_path, torn)
+    cpu, _, _ = _kill_and_recover("cpu", tmp_path, torn)
+    assert [tuple(e) for e in card.events] == [tuple(e) for e in cpu.events]
+    assert card.status == cpu.status
+    strip = [{k: v for k, v in r.recovery.items() if k != "recovery_wall_s"}
+             for r in (card, cpu)]
+    assert strip[0] == strip[1]
+    assert strip[0]["restored_step"] == (0 if torn else 1)
+    assert [(r.rig_id, r.t, r.t_arrival, r.status) for r in card.reports] == \
+        [(r.rig_id, r.t, r.t_arrival, r.status) for r in cpu.reports]
+    assert launches == 4 * batches > 0
+    crash_time = 1.5 * SERVE_DT + 1e-9
+    first = {}
+    for r in card.reports:
+        if r.t > crash_time:
+            first.setdefault(r.rig_id, r)
+    assert len(first) == 3
+    for r in first.values():
+        assert not bool(r.output.pose.valid.any())

@@ -44,7 +44,10 @@ def test_port_imports_without_jax_or_repro():
               "repro_torch.distributed", "repro_torch.distributed.compression",
               "repro_torch.serving", "repro_torch.serving.faults",
               "repro_torch.serving.queue", "repro_torch.serving.service",
-              "repro_torch.serving.supervisor"):
+              "repro_torch.serving.supervisor",
+              "repro_torch.serving.failover", "repro_torch.serving.snapshot",
+              "repro_torch.checkpoint", "repro_torch.checkpoint.store",
+              "repro_torch.launch", "repro_torch.launch.mesh"):
         assert m in mods, m
     code = (
         "import sys, importlib.util\n"

@@ -39,7 +39,7 @@ Outputs are held three ways:
   on replay.
 
 The padding row of a bucketed batch (every camera masked) is held to
-JAX's, and the parts that are ROADMAP A10b raise ``NotImplementedError``.
+JAX's.  The failover layer and snapshots are ``test_torch_failover.py``'s.
 """
 
 import dataclasses
@@ -621,30 +621,12 @@ def test_localized_quarantine_drops_pose_state():
     assert any(bool(r.output.pose.valid) for r in reports)
 
 
-# -- what is left for ROADMAP A10b ---------------------------------------------
-
-@pytest.mark.parametrize("kwarg", ["guard", "host_map"])
-def test_failover_layer_raises_not_implemented(kwarg):
-    vs = _sessions("f32")[1]
-    with pytest.raises(NotImplementedError, match="A10b"):
-        serving.FleetService(vs, **{kwarg: object()})
-
-
-@pytest.mark.parametrize("kwargs", [
-    dict(snapshot_dir="snapshots"), dict(crash_at=1),
-    dict(restore=lambda: None),
-    dict(snapshot_dir="snapshots", crash_at=1, restore=lambda: None)])
-def test_snapshots_raise_not_implemented(kwargs):
-    svc = serving.FleetService(_sessions("f32")[1])
-    with pytest.raises(NotImplementedError, match="A10b"):
-        serving.run_episode(svc, _fleet()[0][:1], **kwargs)
-    assert svc.counters["frames_in"] == 0
-
+# -- without a host map ----------------------------------------------------------
 
 def test_host_down_without_a_host_map_raises_as_jax():
-    """Without a host map (the only service the port has) ``host_down``
-    raises JAX's ``ValueError``, so a host-down spec in an episode fails
-    as it does in JAX."""
+    """Without a host map ``host_down`` raises JAX's ``ValueError``, so
+    a host-down spec in an episode fails as it does in JAX (with one,
+    ``test_torch_failover.py``)."""
     jvs, tvs = _sessions("f32")
     svc = serving.FleetService(tvs)
     jsvc = jserving.FleetService(jvs)
